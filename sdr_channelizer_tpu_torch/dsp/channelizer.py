@@ -1,0 +1,126 @@
+"""Polyphase analysis channelizer: the port's plain-PyTorch oracle.
+
+Same behaviour as MATLAB ``dsp.Channelizer(M)`` as used by the reference
+(``matlab/create_pdws_channelized.m:29-62``): input truncated to a multiple
+of M, output ``(N/M, M)`` with channel ``k`` the band centred at
+``center_frequencies(M, fs)[k]``, zero initial filter state.
+
+Frame convention (output row ``n`` consumes input frame ``n`` fully):
+
+    y[n, k]   = sum_rho e^{-j 2 pi k rho / M} u[n, rho]
+    u[n, rho] = sum_p  Hr[p, rho] F[n - p, rho]
+
+with frames ``F[n, rho] = x[nM + rho]`` and the frame-aligned polyphase taps
+``Hr[p, rho] = h[pM + (M-1-rho)]``.  The CUDA channelizer kernel's plain
+version is checked against this module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sdr_channelizer_tpu_torch._device import resolve_device
+from sdr_channelizer_tpu_torch.config import ChannelizerConfig
+from sdr_channelizer_tpu_torch.ops import filters
+
+
+def center_frequencies(num_bands: int, sample_rate_sps: float) -> np.ndarray:
+    """Ascending channel centre frequencies, aligned with fftshifted output."""
+    return np.fft.fftshift(np.fft.fftfreq(num_bands)) * sample_rate_sps
+
+
+def dft_matrix(num_bands: int, shifted: bool = True, dtype=np.complex64) -> np.ndarray:
+    """Forward DFT matrix ``W[rho, k] = exp(-2j pi rho k / M)``; with
+    ``shifted`` the columns are reordered so ``u @ W`` equals
+    ``fftshift(fft(u), axes=-1)``."""
+    m = int(num_bands)
+    rho = np.arange(m)[:, None]
+    k = np.arange(m)[None, :]
+    w = np.exp(-2j * np.pi * rho * k / m)
+    if shifted:
+        w = w[:, np.fft.fftshift(np.arange(m))]
+    return w.astype(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Channelizer:
+    """Configured polyphase channelizer; ``taps_rev`` is the frame-aligned
+    polyphase matrix ``Hr`` (P, M) float32."""
+
+    num_bands: int
+    taps_per_band: int
+    taps_rev: np.ndarray
+
+    @classmethod
+    def create(
+        cls,
+        num_bands: int,
+        taps_per_band: int = 12,
+        stopband_atten_db: float = 80.0,
+        prototype: Optional[np.ndarray] = None,
+    ) -> "Channelizer":
+        if prototype is None:
+            prototype = filters.design_prototype_filter(
+                num_bands, taps_per_band, stopband_atten_db
+            )
+        hr = filters.reversed_polyphase(np.asarray(prototype, np.float64), num_bands)
+        return cls(
+            num_bands=num_bands,
+            taps_per_band=hr.shape[0],
+            taps_rev=np.ascontiguousarray(hr.astype(np.float32)),
+        )
+
+    @classmethod
+    def from_config(cls, cfg: ChannelizerConfig) -> "Channelizer":
+        return cls.create(cfg.num_bands, cfg.taps_per_band, cfg.stopband_atten_db)
+
+    @classmethod
+    def from_taps(cls, taps_rev: np.ndarray) -> "Channelizer":
+        """Wrap an existing (P, M) frame-aligned tap matrix."""
+        taps_rev = np.ascontiguousarray(np.asarray(taps_rev, np.float32))
+        return cls(num_bands=taps_rev.shape[1], taps_per_band=taps_rev.shape[0],
+                   taps_rev=taps_rev)
+
+    def center_frequencies(self, sample_rate_sps: float) -> np.ndarray:
+        return center_frequencies(self.num_bands, sample_rate_sps)
+
+    def decimated_rate(self, sample_rate_sps: float) -> float:
+        return sample_rate_sps / self.num_bands
+
+
+def fir_branches(frames: torch.Tensor, taps_rev: torch.Tensor) -> torch.Tensor:
+    """Polyphase branch FIR over (T, M) frames with zero initial state, as
+    P shifted multiply-adds: ``u[n] = sum_p Hr[p] * F[n - p]``."""
+    p = taps_rev.shape[0]
+    t = frames.shape[0]
+    padded = torch.cat([frames.new_zeros((p - 1, frames.shape[1])), frames], dim=0)
+    u = torch.zeros_like(frames)
+    for pp in range(p):
+        u = u + taps_rev[pp] * padded[p - 1 - pp: p - 1 - pp + t]
+    return u
+
+
+def channelize(x, chan: Channelizer, shift: bool = True, method: str = "fft",
+               device=None) -> torch.Tensor:
+    """Channelize a 1-D complex capture; returns ``(N // M, M)`` complex64.
+
+    ``method``: ``"fft"`` (the oracle) or ``"dft"`` (product with the
+    shift-folded DFT matrix, the form the kernel computes)."""
+    device = resolve_device(device)
+    m = chan.num_bands
+    x = torch.as_tensor(x).to(device=device, dtype=torch.complex64)
+    n_frames = x.shape[-1] // m
+    frames = x[: n_frames * m].reshape(n_frames, m)
+    taps = torch.as_tensor(chan.taps_rev, device=device)
+    u = fir_branches(frames, taps)
+    if method == "dft":
+        w = torch.as_tensor(dft_matrix(m, shifted=shift), device=device)
+        return u @ w
+    if method != "fft":
+        raise ValueError(f"unknown method {method!r}")
+    y = torch.fft.fft(u, dim=-1)
+    return torch.fft.fftshift(y, dim=-1) if shift else y

@@ -1,0 +1,393 @@
+"""Pulse-descriptor-word (PDW) extraction.
+
+Semantics of the reference's sequential edge detectors (wideband
+``matlab/create_pdws.m:51-105``, channelized
+``create_pdws_channelized.m:79-136``), kept exactly:
+
+* TOA uses the MATLAB 1-based sample index: ``toa = (i0 + 1)/fs + t0``;
+* the trailing-edge sample IS included in the median magnitude and phase
+  difference windows (``median(mag(toa:jj))``);
+* pulse width is ``(jj - toa)/fs``;
+* phase differences in degrees, wrapped once into [-180, 180] with strict
+  inequalities (exactly +/-180 is not wrapped);
+* saturation (|I| or |Q| >= level) is checked strictly inside the pulse,
+  not at the leading- or trailing-edge samples;
+* frequency is ``fc + fs * medPhaseDiff / 360``;
+* a pulse still active at the end of the capture is not emitted.
+
+Two extractors live here.  ``extract_pdws_core`` is the oracle: a two-bit
+latch over {set, reset, hold, toggle}, edge lists, gathered windows and
+sort-based medians, all plain PyTorch.  ``_extract_channelized_cm2`` is the
+main path's tail: it consumes the channelizer kernel's channel-major
+streams and runs the latch, the rank search and the per-pulse statistics
+through the hand-written kernels (``ops.cuda``).
+
+Device code returns integer indices and float32 metrics; absolute times
+and frequencies are finalized on the host in float64
+(:func:`finalize_pdws`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sdr_channelizer_tpu_torch.config import PdwConfig
+from sdr_channelizer_tpu_torch.ops import cuda as kernels
+from sdr_channelizer_tpu_torch.ops.medians import masked_median, median
+from sdr_channelizer_tpu_torch.ops.rank_find import find_ranks_cm
+
+# Closed pulses up to this many samples go through the statistics kernel
+# with this window; longer ones with ``max_pulse_samples``.
+_SHORT_WINDOW = 128
+
+_RAD2DEG = float(np.float32(180.0 / np.pi))
+
+
+@dataclasses.dataclass
+class PdwBatch:
+    """Fixed-capacity batch of PDWs.
+
+    Tensors have a trailing dimension ``max_pulses`` (after a channel
+    dimension for channelized batches).  Only the first ``count`` entries
+    per channel (the ``valid`` mask) are real.
+    """
+
+    toa_idx: torch.Tensor  # i32, 0-based leading-edge sample index
+    te_idx: torch.Tensor  # i32, 0-based trailing-edge sample index
+    pw_sec: torch.Tensor  # f32, te - toa in samples (scaled on the host)
+    mag: torch.Tensor  # f32, median |iq| over the pulse
+    snr_db: torch.Tensor  # f32, 10*log10(mag/noise_floor)
+    freq_offset_hz: torch.Tensor  # f32, medPhaseDiff/360 cycles per sample
+    saturated: torch.Tensor  # bool
+    valid: torch.Tensor  # bool
+    count: torch.Tensor  # i32, number of valid PDWs
+
+
+def _thresholds(noise_floor: torch.Tensor, cfg: PdwConfig):
+    lead = noise_floor * 10.0 ** (cfg.snr_threshold_db / 10.0)
+    if cfg.trailing_threshold_db is None:
+        return lead, lead
+    return lead, noise_floor * 10.0 ** (cfg.trailing_threshold_db / 10.0)
+
+
+def hysteresis_scan(ge_lead: torch.Tensor,
+                    le_trail: torch.Tensor) -> torch.Tensor:
+    """Pulse-active state after each sample along the last dimension.
+
+    Each sample is a transfer function of the boolean latch, the pair
+    ``(f(0), f(1)) = (ge_lead, ~le_trail)``: set, reset, hold, or (when a
+    sample meets both thresholds at once) toggle.  The state is that of the
+    last set or reset at or before the sample, else inactive (the
+    reference's ``pulseActive = false``), flipped once per toggle since.
+    """
+    t_len = ge_lead.shape[-1]
+    const = ge_lead ^ le_trail           # set (1, 1) or reset (0, 0)
+    toggle = ge_lead & le_trail          # (1, 0)
+    pos = torch.arange(t_len, device=ge_lead.device)
+    last = torch.cummax(
+        torch.where(const, pos, torch.full_like(pos, -1)), dim=-1).values
+    safe = last.clamp(min=0)
+    base = (last >= 0) & torch.gather(ge_lead, -1, safe)
+    tc = torch.cumsum(toggle.to(torch.int32), dim=-1)
+    since = tc - torch.where(last >= 0, torch.gather(tc, -1, safe),
+                             torch.zeros_like(tc))
+    return base ^ (since % 2 == 1)
+
+
+def _edge_indices(edge: torch.Tensor, max_pulses: int) -> torch.Tensor:
+    """Indices of the True entries along the last dimension, padded with its
+    length (an out-of-range sentinel) to ``max_pulses``: the r-th edge is
+    the first position whose running count reaches r + 1."""
+    t_len = edge.shape[-1]
+    csum = torch.cumsum(edge.to(torch.int32), dim=-1)
+    ranks = torch.arange(1, max_pulses + 1, dtype=torch.int32,
+                         device=edge.device).expand(*edge.shape[:-1], max_pulses)
+    return torch.searchsorted(csum, ranks.contiguous(), right=False).clamp(
+        max=t_len).to(torch.int32)
+
+
+def extract_pdws_core(
+    mag: torch.Tensor,
+    phase_deg: torch.Tensor,
+    sat_sample: torch.Tensor,
+    noise_floor: torch.Tensor,
+    cfg: PdwConfig,
+) -> PdwBatch:
+    """The oracle extractor over detection streams with time last.
+
+    ``mag``, ``phase_deg``, ``sat_sample``: (T,) or (M, T);
+    ``noise_floor``: scalar or (M,).
+    """
+    lead, trail = _thresholds(noise_floor, cfg)
+    state = hysteresis_scan(mag >= lead[..., None], mag <= trail[..., None])
+    prev = torch.cat([torch.zeros_like(state[..., :1]), state[..., :-1]], -1)
+    lead_edge = state & ~prev
+    trail_edge = ~state & prev  # True exactly at the reference's `jj`
+    toa_idx = _edge_indices(lead_edge, cfg.max_pulses)
+    te_idx = _edge_indices(trail_edge, cfg.max_pulses)
+    # A capture with more pulses than slots drops the overflow.
+    count = trail_edge.sum(-1).clamp(max=cfg.max_pulses).to(torch.int32)
+    valid = torch.arange(cfg.max_pulses, device=mag.device) < count[..., None]
+    return _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx,
+                       te_idx, valid, count, cfg.max_pulse_samples)
+
+
+def _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx, te_idx,
+                valid, count, w) -> PdwBatch:
+    """Per-pulse statistics over gathered windows, and the batch."""
+    t_len = mag.shape[-1]
+    lead_shape = mag.shape[:-1]
+
+    def padded(x, n, fill):
+        return torch.cat([x, x.new_full((*lead_shape, n), fill)], dim=-1)
+
+    mag_p = padded(mag, w, float("inf"))
+    dph = phase_deg[..., 1:] - phase_deg[..., :-1]
+    dph = torch.where(dph < -180.0, dph + 360.0, dph)
+    dph = torch.where(dph > 180.0, dph - 360.0, dph)
+    dph_p = padded(dph, w + 1, 0.0)
+    sat_p = padded(sat_sample, w, False)
+
+    pos = torch.arange(w, device=mag.device)
+    i0 = toa_idx.clamp(0, t_len).to(torch.int64)
+    i1 = te_idx.clamp(0, t_len).to(torch.int64)
+    plen = torch.clamp(i1 - i0 + 1, max=w)[..., None]  # samples toa..jj
+    idx = (i0[..., None] + pos).reshape(*lead_shape, -1)
+
+    def windows(x):
+        return torch.gather(x, -1, idx).reshape(*i0.shape, w)
+
+    med_mag = masked_median(windows(mag_p), pos < plen)
+    # diff(phase(toa:jj)) = dph[toa .. jj-1], plen-1 entries
+    med_dph = masked_median(windows(dph_p), pos < plen - 1)
+    # saturation strictly inside the pulse: samples toa+1 .. jj-1
+    sat = (windows(sat_p) & (pos >= 1) & (pos < plen - 1)).any(-1)
+
+    nf = noise_floor if noise_floor.ndim == 0 else noise_floor[..., None]
+    snr = 10.0 * torch.log10(med_mag / nf)
+    zero = mag.new_zeros(())
+    return PdwBatch(
+        toa_idx=torch.where(valid, toa_idx, -1),
+        te_idx=torch.where(valid, te_idx, -1),
+        pw_sec=torch.where(valid, (te_idx - toa_idx).to(torch.float32), zero),
+        mag=torch.where(valid, med_mag, zero),
+        snr_db=torch.where(valid, snr, zero),
+        freq_offset_hz=torch.where(valid, med_dph / 360.0, zero),
+        saturated=valid & sat,
+        valid=valid,
+        count=count,
+    )
+
+
+def _prep_streams(iq: torch.Tensor, saturation_level: float):
+    mag = iq.abs()
+    phase_deg = torch.angle(iq) * _RAD2DEG
+    sat = ((iq.real.abs() >= saturation_level)
+           | (iq.imag.abs() >= saturation_level))
+    return mag, phase_deg, sat
+
+
+def extract_pdws_channelized_streams(
+    mag: torch.Tensor,
+    phase_deg: torch.Tensor,
+    sat: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+) -> PdwBatch:
+    """Per-channel oracle extraction from (T, M) detection streams."""
+    if noise_floor is None:
+        noise_floor = median(mag, dim=0)
+    return extract_pdws_core(mag.T.contiguous(), phase_deg.T.contiguous(),
+                             sat.T.contiguous(), noise_floor, cfg)
+
+
+def extract_pdws_channelized(
+    chan_iq: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+) -> PdwBatch:
+    """Per-channel oracle extraction from a channelized (T, M) complex
+    matrix: the noise floor is per channel (median over time), detection is
+    independent per channel.  Batch tensors have shape (M, max_pulses)."""
+    mag, phase_deg, sat = _prep_streams(chan_iq, cfg.saturation_level)
+    return extract_pdws_channelized_streams(mag, phase_deg, sat, cfg,
+                                            noise_floor)
+
+
+def noise_floor_cm(mag_cm: torch.Tensor, m: int, t_len: int,
+                   ops=kernels.KERNELS) -> torch.Tensor:
+    """Per-channel median noise floor of the first ``m`` rows and ``t_len``
+    columns of the channel-major magnitude (exact median over the whole
+    capture, ``create_pdws_channelized.m:73``)."""
+    return ops.noise_floor(mag_cm[:m], t_len)
+
+
+def _extract_channelized_cm2(
+    mag_cm: torch.Tensor,
+    dph_cm: torch.Tensor,
+    satcs_cm: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: torch.Tensor,
+    t_len: int,
+    m: int,
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Channel-major extraction: the main path's tail.
+
+    Inputs are the channelizer kernel's streams: (R >= m, T >= t_len)
+    channel-major magnitude and wrapped phase difference plus the
+    saturation cumulative count.
+
+    * The latch runs channel-major and leaves the leading and trailing edge
+      counts stacked in one (2R, T) tensor, so one rank search finds every
+      edge of every channel.
+    * The statistics run in three tiers on the per-channel (m, max_pulses)
+      slot grid.  Tiny pulses (at most 2 samples) have closed forms: the
+      median magnitude is the mean of the one or two samples, the median
+      phase difference the single first difference (or NaN).  Short closed
+      pulses (at most 128 samples) and the rest go through the statistics
+      kernel with the window 128 and ``max_pulse_samples``; a slot outside
+      a tier is handed over as dead.
+    * Saturation comes from the cumulative count: the interior samples
+      ``toa + 1 .. te - 1`` hold ``S[te - 1] - S[toa]`` saturated ones.
+
+    The latch starts inactive and the whole capture is owned (the block
+    contract of the sharded and streamed callers is not ported yet).
+    """
+    if t_len < 1:
+        raise ValueError("capture shorter than one channelizer frame")
+    p_slots = cfg.max_pulses
+    w = cfg.max_pulse_samples
+    r = mag_cm.shape[0]
+    dev = mag_cm.device
+
+    lead_thresh, trail_thresh = _thresholds(noise_floor, cfg)
+    packed = ops.latch(mag_cm[:, :t_len].contiguous(), lead_thresh,
+                       trail_thresh, m)
+    # (2R, t_len): rows [0, R) lead counts, [R, 2R) trail: one search.
+    ranks = torch.arange(1, p_slots + 1, dtype=torch.float32,
+                         device=dev).expand(2 * r, p_slots)
+    idx = find_ranks_cm(packed, ranks, t_len)
+    toa_idx = idx[:m]
+    te_idx = idx[r:r + m]
+    n_own = packed[:m, t_len - 1].to(torch.int32)
+
+    slot = torch.arange(p_slots, device=dev)
+    matched = (slot < n_own[:, None]) & (te_idx < t_len)
+    count = matched.sum(1).clamp(max=cfg.max_pulses).to(torch.int32)
+    valid = slot < count[:, None]
+
+    plen = te_idx - toa_idx + 1
+    valid_slot = toa_idx < t_len
+    closed = valid_slot & (te_idx < t_len)
+    safe_toa = toa_idx.clamp(max=t_len - 1).to(torch.int64)
+    safe_te = te_idx.clamp(max=t_len - 1).to(torch.int64)
+
+    mag_a = torch.gather(mag_cm[:m], 1, safe_toa)
+    mag_b = torch.gather(mag_cm[:m], 1, safe_te)
+    tiny_mag = torch.where(plen >= 2, 0.5 * (mag_a + mag_b), mag_a)
+    nan = torch.full((), float("nan"), device=dev)
+    tiny_dph = torch.where(plen >= 2, torch.gather(dph_cm[:m], 1, safe_toa),
+                           nan)
+
+    # Exact for every tier: plen <= 2 has an empty interior, difference 0.
+    s_hi = torch.gather(satcs_cm[:m], 1, (safe_te - 1).clamp(min=0))
+    s_lo = torch.gather(satcs_cm[:m], 1, safe_toa)
+    sat_any = (s_hi - s_lo) > 0.5
+
+    sentinel = torch.full((), t_len, dtype=torch.int32, device=dev)
+
+    def tier(sel, window):
+        return ops.pulse_stats(
+            mag_cm, dph_cm, torch.where(sel, toa_idx, sentinel),
+            torch.where(sel, te_idx, sentinel), window, t_len)
+
+    if w > _SHORT_WINDOW:
+        is_tiny = closed & (plen <= 2)
+        is_short = closed & ~is_tiny & (plen <= _SHORT_WINDOW)
+        is_long = valid_slot & ~is_tiny & ~is_short
+        s_mag, s_dph = tier(is_short, _SHORT_WINDOW)
+        l_mag, l_dph = tier(is_long, w)
+        med_mag = torch.where(is_tiny, tiny_mag,
+                              torch.where(is_short, s_mag, l_mag))
+        med_dph = torch.where(is_tiny, tiny_dph,
+                              torch.where(is_short, s_dph, l_dph))
+    else:
+        med_mag, med_dph = ops.pulse_stats(mag_cm, dph_cm, toa_idx, te_idx,
+                                           w, t_len)
+
+    snr = 10.0 * torch.log10(med_mag / noise_floor[:, None])
+    zero = mag_cm.new_zeros(())
+    return PdwBatch(
+        toa_idx=torch.where(valid, toa_idx, -1),
+        te_idx=torch.where(valid, te_idx, -1),
+        pw_sec=torch.where(valid, (te_idx - toa_idx).to(torch.float32), zero),
+        mag=torch.where(valid, med_mag, zero),
+        snr_db=torch.where(valid, snr, zero),
+        freq_offset_hz=torch.where(valid, med_dph / 360.0, zero),
+        saturated=valid & sat_any,
+        valid=valid,
+        count=count,
+    )
+
+
+def finalize_pdws(
+    batch: PdwBatch,
+    fs: float,
+    fc: float = 0.0,
+    sample_start_time: float = 0.0,
+    bin_offsets_hz: Optional[np.ndarray] = None,
+) -> dict:
+    """Convert a (possibly channelized) PdwBatch to host float64 PDW arrays.
+
+    Applies the MATLAB formulas exactly, in float64:
+    ``toa = (i0+1)/fs + sampleStartTime``, ``pw = (jj-toa)/fs``,
+    ``freq = fc [+ bin] + fs*medPhaseDiff/360``.  For channelized batches
+    pass ``bin_offsets_hz = center_frequencies(M, fs_original)`` and the
+    decimated ``fs``.
+
+    Returns a dict of 1-D numpy arrays sorted by TOA:
+    ``toa, freq, pw, mag, snr, sat, channel``.
+    """
+    def host(x, dtype):
+        return np.asarray(x.detach().cpu().numpy(), dtype)
+
+    toa_idx = host(batch.toa_idx, np.int64)
+    te_idx = host(batch.te_idx, np.int64)
+    valid = host(batch.valid, bool)
+    mag = host(batch.mag, np.float64)
+    snr = host(batch.snr_db, np.float64)
+    foff = host(batch.freq_offset_hz, np.float64)
+    sat = host(batch.saturated, bool)
+
+    if toa_idx.ndim == 1:
+        channel = np.zeros_like(toa_idx)
+        bin_off = np.zeros(1)
+    else:
+        m = toa_idx.shape[0]
+        channel = np.broadcast_to(np.arange(m)[:, None], toa_idx.shape)
+        bin_off = (np.zeros(m) if bin_offsets_hz is None
+                   else np.asarray(bin_offsets_hz, np.float64))
+
+    sel = valid.ravel()
+    ch = channel.ravel()[sel]
+    i0 = toa_idx.ravel()[sel]
+    i1 = te_idx.ravel()[sel]
+    toa = (i0 + 1) / fs + sample_start_time
+    pw = (i1 - i0) / fs
+    freq = fc + bin_off[ch] + foff.ravel()[sel] * fs
+
+    order = np.argsort(toa, kind="stable")
+    return {
+        "toa": toa[order],
+        "freq": freq[order],
+        "pw": pw[order],
+        "mag": mag.ravel()[sel][order],
+        "snr": snr.ravel()[sel][order],
+        "sat": sat.ravel()[sel][order],
+        "channel": ch[order],
+    }

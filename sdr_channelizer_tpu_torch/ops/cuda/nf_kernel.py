@@ -1,0 +1,69 @@
+"""Kernel K2: exact per-channel median of the channel-major magnitude.
+
+The counterpart of ``pallas_noise_floor_cm`` of the JAX package.
+``noise_floor_cm`` launches the CUDA radix select (``csrc/noise_floor.cu``)
+for a CUDA tensor, or raises; for a CPU tensor it takes
+``noise_floor_cm_plain``, a sort of the first ``t_len`` columns.  Both give
+the median a sort gives, bit for bit: the mean of the order statistics of
+rank ``(t_len - 1) // 2`` and ``t_len // 2``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sdr_channelizer_tpu_torch.ops.cuda import _build
+
+launches = 0  # times the wrapper launched the CUDA kernel
+
+
+def _check_args(mag_cm: torch.Tensor, t_len: int) -> None:
+    if mag_cm.dtype != torch.float32 or mag_cm.ndim != 2:
+        raise TypeError("mag_cm must be a 2-D float32 tensor (rows, T)")
+    if not 0 <= t_len <= mag_cm.shape[1]:
+        raise ValueError(f"t_len={t_len} outside [0, {mag_cm.shape[1]}]")
+
+
+def noise_floor_cm_plain(mag_cm: torch.Tensor, t_len: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`noise_floor_cm`."""
+    _check_args(mag_cm, t_len)
+    if t_len == 0:
+        return mag_cm.new_full((mag_cm.shape[0],), float("nan"))
+    xs, _ = torch.sort(mag_cm[:, :t_len], dim=1)
+    return 0.5 * (xs[:, (t_len - 1) // 2] + xs[:, t_len // 2])
+
+
+def _library():
+    import ctypes
+
+    lib = _build.load("noise_floor")
+    if not getattr(lib, "_sdr_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.sdr_noise_floor_cm.argtypes = [vp, vp, ci, ctypes.c_longlong, ci, vp]
+        lib.sdr_noise_floor_cm.restype = ci
+        lib._sdr_typed = True
+    return lib
+
+
+def noise_floor_cm(mag_cm: torch.Tensor, t_len: int) -> torch.Tensor:
+    """Median of each row of ``mag_cm`` (rows, T) over its first ``t_len``
+    columns; columns past ``t_len`` are not read.  Returns (rows,) float32,
+    NaN when ``t_len`` is 0."""
+    global launches
+    _check_args(mag_cm, t_len)
+    if not mag_cm.is_cuda:
+        return noise_floor_cm_plain(mag_cm, t_len)
+    if mag_cm.stride(1) != 1 or mag_cm.stride(0) < mag_cm.shape[1]:
+        raise ValueError("mag_cm rows must be contiguous along time")
+    rows = mag_cm.shape[0]
+    out = torch.empty((rows,), dtype=torch.float32, device=mag_cm.device)
+    if rows == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(mag_cm.device):
+        code = lib.sdr_noise_floor_cm(
+            mag_cm.data_ptr(), out.data_ptr(), rows, mag_cm.stride(0), t_len,
+            torch.cuda.current_stream(mag_cm.device).cuda_stream)
+    _build.check_launch(code, "sdr_noise_floor_cm")
+    launches += 1
+    return out

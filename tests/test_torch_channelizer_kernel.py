@@ -1,0 +1,141 @@
+"""The port's channelizer (kernel K1's plain version and the FFT oracle)
+against the JAX package on the same inputs."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sdr_channelizer_tpu.dsp import channelizer as jchan
+from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
+    pallas_channelize_streams_packed_cm2,
+)
+from sdr_channelizer_tpu_torch.dsp import channelizer as tchan
+from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
+from torch_port_fixtures import M, packed, pulse_capture
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", params=[12, 8], ids=["int16", "int8"])
+def streams(request):
+    """(JAX streams cut to the real rows and columns, the port's, t_len)."""
+    bw = request.param
+    xq = packed(pulse_capture(bw))
+    taps = jchan.Channelizer.create(M).taps_rev
+    ref = pallas_channelize_streams_packed_cm2(
+        jnp.asarray(xq), taps, bit_width=bw, block_frames=256, interpret=True)
+    t_len = len(xq) // M
+    ref = [np.asarray(r) for r in ref]
+    assert not ref[0][:, t_len:].any() and not ref[1][:, t_len:].any()
+    got = ck.channelize_streams_packed_cm2(torch.from_numpy(xq), taps, bw)
+    return ([r[:M, :t_len] for r in ref], [g.numpy() for g in got], t_len)
+
+
+def test_stream_shapes(streams):
+    ref, got, t_len = streams
+    for g in got:
+        assert g.shape == (M, t_len) and g.dtype == np.float32
+
+
+def test_mag_cm_matches_jax_kernel(streams):
+    ref, got, _ = streams
+    # the DFT sums in another order: the JAX package's own bar
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, atol=1e-5)
+
+
+def test_dph_cm_matches_jax_kernel(streams):
+    ref, got, t_len = streams
+    d = (got[1] - ref[1] + 180.0) % 360.0 - 180.0
+    loud = ref[0] > 1e-4
+    loud[:, :-1] &= loud[:, 1:]
+    assert np.abs(d[loud]).max() <= 0.05
+    assert not got[1][:, t_len - 1:].any()  # zero from column t_len - 1 on
+    assert np.abs(got[1]).max() <= 180.0
+
+
+def test_satcs_cm_matches_jax_kernel_exactly(streams):
+    ref, got, _ = streams
+    assert ref[2].max() > 0  # the clipped segment saturates
+    np.testing.assert_array_equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("m", [8, 20, 56, 64])
+def test_taps_equal_jax_package(m):
+    np.testing.assert_array_equal(tchan.Channelizer.create(m).taps_rev,
+                                  jchan.Channelizer.create(m).taps_rev)
+    np.testing.assert_array_equal(tchan.dft_matrix(m), jchan.dft_matrix(m))
+    np.testing.assert_array_equal(tchan.center_frequencies(m, 1e6 * m),
+                                  jchan.center_frequencies(m, 1e6 * m))
+
+
+@pytest.mark.parametrize("method", ["fft", "dft"])
+def test_channelize_matches_jax(method):
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(8 * 500) + 1j * rng.standard_normal(8 * 500)
+         ).astype(np.complex64)
+    ref = np.asarray(jchan.channelize(jnp.asarray(x),
+                                      jchan.Channelizer.create(M),
+                                      method=method))
+    got = tchan.channelize(x, tchan.Channelizer.create(M), method=method,
+                           device="cpu").numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("m,frames,bw", [(20, 777, 12), (56, 131, 8)])
+def test_plain_kernel_matches_port_channelize(m, frames, bw):
+    """M that is no power of two, T that is a multiple of nothing."""
+    rng = np.random.default_rng(m)
+    full = 1 << (bw - 1)
+    dt = np.int8 if bw == 8 else np.int16
+    s = rng.integers(-full // 2, full // 2, size=(m * frames + 3, 2)).astype(dt)
+    s[40 * m:42 * m] = full - 1
+    chan = tchan.Channelizer.create(m)
+    mag, dph, satcs = ck.channelize_streams_packed_cm2(
+        torch.from_numpy(packed(s)), chan.taps_rev, bw)
+    iq = (s[:, 0].astype(np.float32) + 1j * s[:, 1].astype(np.float32)) / full
+    y = tchan.channelize(iq.astype(np.complex64), chan, device="cpu")
+    assert mag.shape == (m, frames)
+    np.testing.assert_allclose(mag.numpy(), y.abs().T.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    ph = torch.angle(y) * (180.0 / np.pi)
+    want = (ph[1:] - ph[:-1]).T.numpy()
+    d = (dph[:, :-1].numpy() - want + 180.0) % 360.0 - 180.0
+    assert np.abs(d[(y.abs().T.numpy() > 1e-4)[:, :-1]]).max() <= 0.05
+    sat = ((y.real.abs() >= 0.9999) | (y.imag.abs() >= 0.9999)).T.numpy()
+    assert sat.any()
+    np.testing.assert_array_equal(satcs.numpy(), np.cumsum(sat, axis=1))
+
+
+def test_unpack_pairs_sign_extends():
+    rng = np.random.default_rng(0)
+    for dt, wide in ((np.int16, torch.int32), (np.int8, torch.int16)):
+        info = np.iinfo(dt)
+        s = rng.integers(info.min, info.max + 1, size=(257, 2)).astype(dt)
+        s[0], s[1] = (info.min, info.max), (-1, 0)
+        i, q = ck.unpack_pairs(torch.from_numpy(packed(s)))
+        assert torch.from_numpy(packed(s)).dtype == wide
+        np.testing.assert_array_equal(i.numpy(), s[:, 0].astype(np.float32))
+        np.testing.assert_array_equal(q.numpy(), s[:, 1].astype(np.float32))
+
+
+def test_atan2_cephes_close_to_arctan2_and_conventions():
+    rng = np.random.default_rng(1)
+    y = rng.standard_normal(4096).astype(np.float32)
+    x = rng.standard_normal(4096).astype(np.float32)
+    got = ck.atan2_cephes(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.arctan2(y, x), atol=2e-6)
+    sp = ck.atan2_cephes(torch.tensor([0.0, 0.0, 1.0, -1.0, -0.0]),
+                         torch.tensor([0.0, -1.0, 0.0, 0.0, -2.0])).numpy()
+    np.testing.assert_allclose(
+        sp, [0.0, np.pi, np.pi / 2, -np.pi / 2, np.pi], atol=1e-6)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    taps = tchan.Channelizer.create(M).taps_rev
+    with pytest.raises(TypeError):
+        ck.channelize_streams_packed_cm2(torch.zeros(64), taps)
+    with pytest.raises(ValueError):
+        ck.channelize_streams_packed_cm2(
+            torch.zeros((8, 8), dtype=torch.int32), taps)
