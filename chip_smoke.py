@@ -7,10 +7,15 @@ Builds the hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card, drives the port's
 main path (packed int16 capture -> channelizer -> noise floor -> latch ->
 pulse statistics -> PDWs) at its real size, M = 64 bands x 262144 frames,
-and runs the CLI once.  One JSON line per phase; any failure exits
-non-zero.  ``--profile`` adds a phase that prints the device time of a step
-by kernel name.  There is no CPU path: without a CUDA device the script exits at
-once with code 2 and prints no result.
+then the streamed path (four contiguous ``.iq`` files of 16,777,216 samples
+each -> blocks of 65536 frames through the channelizer's cm form, the
+time-major latch and the statistics with the saturation mask, with
+checkpoint and resume) and holds it against single-shot extraction of the
+same samples, and runs the CLI.  One JSON line per phase; any failure exits
+non-zero.  ``--profile`` adds phases that print the device time of a step by
+kernel name and where a streamed block's time goes.  There is no CPU path:
+without a CUDA device the script exits at once with code 2 and prints no
+result.
 
 The last line of the standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -18,6 +23,7 @@ The last line of the standard output is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -30,6 +36,9 @@ import numpy as np
 
 M_MAIN = 64
 FRAMES_MAIN = 262144
+BLOCK_FRAMES = 65536          # the streamed block (the CLI's default)
+HALO_FRAMES = 1024            # its look-ahead: max_pulse_samples
+STREAM_FILES = 4              # files of M_MAIN * FRAMES_MAIN samples each
 BIT_WIDTH = 12
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -150,17 +159,29 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(out)
 
 
-def compare_streams(xq, taps, bit_width, sat_level, got, where: str) -> dict:
-    """K1 against its plain version: magnitude and phase difference at the
-    stated tolerances; the saturation count exactly, but for samples whose
-    |Re| or |Im| lies within SAT_HOVER of the level, which may flip."""
+def compare_streams(xq, taps, bit_width, sat_level, got, where: str,
+                    history=None) -> dict:
+    """K1, or its cm form when ``got`` has four streams, against its plain
+    version: magnitude and phase difference at the stated tolerances; the
+    saturation exactly (as a count), but for samples whose |Re| or |Im| lies
+    within SAT_HOVER of the level, which may flip."""
     import torch
 
     from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
 
-    mag, dph, satcs = got
-    pm, pd, ps = ck.channelize_streams_packed_cm2_plain(
-        xq, taps, bit_width, sat_level)
+    if len(got) == 4:
+        mag_tm, mag, dph, sat = got
+        p_tm, pm, pd, p_sat = ck.channelize_streams_packed_cm_plain(
+            xq, taps, bit_width, sat_level, history=history)
+        check(bool(((sat == 0) | (sat == 1)).all()),
+              f"{where}: sat_cm is not a 0/1 mask")
+        check(same(mag_tm, mag.T) and same(p_tm, pm.T),
+              f"{where}: time-major |y| is not the flip of mag_cm")
+        satcs, ps = torch.cumsum(sat, dim=1), torch.cumsum(p_sat, dim=1)
+    else:
+        mag, dph, satcs = got
+        pm, pd, ps = ck.channelize_streams_packed_cm2_plain(
+            xq, taps, bit_width, sat_level, history=history)
     check(mag.shape == pm.shape == dph.shape == satcs.shape,
           f"{where}: stream shapes {tuple(mag.shape)} vs {tuple(pm.shape)}")
     check(bool(torch.isfinite(mag).all() and torch.isfinite(dph).all()),
@@ -181,7 +202,8 @@ def compare_streams(xq, taps, bit_width, sat_level, got, where: str) -> dict:
     check(dph_err <= DPH_TOL_DEG, f"{where}: dph_cm off by {dph_err:.3g} deg "
                                   f"where |y| > 0.01")
     check(bool((dph[:, -1] == 0).all()), f"{where}: last dph column not zero")
-    yr, yi = ck.channelize_planes_plain(xq, taps, bit_width)
+    yr, yi = ck.channelize_planes_plain(xq, taps, bit_width,
+                                        history=history)
     hover = (((yr.abs() - sat_level).abs() <= SAT_HOVER)
              | ((yi.abs() - sat_level).abs() <= SAT_HOVER)).T
     allowed = torch.cumsum(hover.to(torch.float32), dim=1)
@@ -264,6 +286,36 @@ def kernels_small():
         check(all(same(a, b) for a, b in zip(alt, got)),
               f"K1 {where}: result depends on the tile length")
 
+        # B6, the cm form: against its plain version, and the same bits as
+        # K1 (one kernel body); then both forms with a history
+        cm = k.channelize_streams_packed_cm(xq, taps, bw, 0.9999)
+        torch.cuda.synchronize()
+        compare_streams(xq, taps, bw, 0.9999, cm, "B6 " + where)
+        check(same(cm[1], mag) and same(cm[2], dph)
+              and same(torch.cumsum(cm[3], dim=1), got[2]),
+              f"B6 {where}: streams are not K1's bits")
+        p_taps = taps.shape[0]
+        for cut in (frames // 2, p_taps - 4):
+            # frames [cut, frames) with the packed frames before them: a
+            # full history, and one padded on the left with zeros
+            head = xq[max(cut - (p_taps - 1), 0) * m: cut * m]
+            hist = torch.cat([head.new_zeros((p_taps - 1) * m - head.numel()),
+                              head])
+            tail = xq[cut * m: frames * m]
+            for fn, whole in ((k.channelize_streams_packed_cm2, got),
+                              (k.channelize_streams_packed_cm, cm)):
+                part = fn(tail, taps, bw, 0.9999, history=hist)
+                want = [w[cut:] if w.shape[0] == frames else w[:, cut:]
+                        for w in whole]
+                if len(whole) == 3:  # the count restarts at the cut
+                    want[2] = want[2] - (whole[2][:, cut - 1:cut])
+                check(all(same(a, b) for a, b in zip(part, want)),
+                      f"{fn.__name__} {where}: a block with history from "
+                      f"frame {cut} is not the tail of the whole")
+            compare_streams(tail, taps, bw, 0.9999, part,
+                            f"B6 {where} history at {cut}", history=hist)
+        mag_tm, _, _, sat_cm = cm
+
         # K2: even and odd t_len, pad columns present, duplicates
         magq = torch.round(mag * 64) / 64  # many equal values at the median
         for src in (mag, magq):
@@ -283,8 +335,22 @@ def kernels_small():
             a = k.latch_cumsums_cm(mag, th_l, th_t, m, ent)
             b = k.latch_cumsums_cm_plain(mag, th_l, th_t, m, ent)
             check(same(a, b), f"K3 {where}: off by {max_abs(a, b):.3g}")
+            # B7: the same latch from the time-major magnitude
+            c = k.latch_cumsums(mag_tm, th_l, th_t, ent)
+            d = k.latch_cumsums_plain(mag_tm, th_l, th_t, ent)
+            check(same(c, d), f"B7 {where}: off by {max_abs(c, d):.3g}")
+            check(same(c, a), f"B7 {where}: differs from K3 on the flip")
         packed = k.latch_cumsums_cm(mag, lead, lead, m)
         check(packed[:m, -1].sum() > 0, f"K3 {where}: no pulse detected")
+        # a threshold under the last frame: every channel ends inside a
+        # pulse, which B7 leaves without a trailing edge (no pad columns),
+        # with and without an entry state
+        th_open = 0.5 * mag[:, -1]
+        for ent in (None, entry):
+            c = k.latch_cumsums(mag_tm, th_open, th_open, ent)
+            opens = c[:m, -1] + (0 if ent is None else ent) - c[m:, -1]
+            check(bool((opens == 1).all()),
+                  f"B7 {where}: a pulse open at the end got a trailing edge")
 
         # K4: the slots the latch found, plus crafted ones
         toa, te = slot_grids(packed, m, 64, frames)
@@ -295,12 +361,41 @@ def kernels_small():
         toa[:, -3] = 11             # longer than any window here
         te[:, -3] = frames - 1
         toa[:, -4] = frames         # dead
+        first = sat_cm.argmax(dim=1).to(torch.int32)  # first saturated frame
+        inside = sat_cm.any(dim=1) & (first >= 1)
+        toa[:, -5] = first - 1      # that frame alone inside the pulse
+        te[:, -5] = first + 1
+        toa[:, -6] = first          # that frame on the leading edge
+        te[:, -6] = first + 1
+        perm = torch.randperm(toa.numel(), device=dev,
+                              generator=torch.Generator(dev).manual_seed(m))
+        chan = (perm // toa.shape[1]).to(torch.int32)
+        toa_f, te_f = toa.reshape(-1)[perm], te.reshape(-1)[perm]
         for window in (128, 256, 1000):
             a = k.pulse_stats(mag, dph, toa, te, window, frames)
             b = k.pulse_stats_plain(mag, dph, toa, te, window, frames)
             check(same(a[0], b[0]) and same(a[1], b[1]),
                   f"K4 {where} window={window}: off by "
                   f"{max_abs(a[0], b[0]):.3g} / {max_abs(a[1], b[1]):.3g}")
+            # with the saturation mask, and as a shuffled flat list
+            a3 = k.pulse_stats(mag, dph, toa, te, window, frames, sat_cm)
+            b3 = k.pulse_stats_plain(mag, dph, toa, te, window, frames,
+                                     sat_cm)
+            check(all(same(x, y) for x, y in zip(a3, b3)) and len(a3) == 3
+                  and same(a3[0], a[0]) and same(a3[1], a[1]),
+                  f"K4 sat_cm {where} window={window}: differs from plain")
+            check(same(a3[2][:, -5], inside.to(torch.float32))
+                  and bool(inside.any()) and not bool(a3[2][:, -6].any()),
+                  f"K4 sat_cm {where} window={window}: flag not strictly "
+                  f"inside the pulse")
+            ad = k.pulse_stats_dense(mag, dph, sat_cm, toa_f, te_f, chan,
+                                     window, frames)
+            bd = k.pulse_stats_dense_plain(mag, dph, sat_cm, toa_f, te_f,
+                                           chan, window, frames)
+            check(all(same(x, y) for x, y in zip(ad, bd))
+                  and all(same(x, y.reshape(-1)[perm])
+                          for x, y in zip(ad, a3)),
+                  f"K4 dense {where} window={window}: differs from plain")
         torch.cuda.synchronize()
         cases.append({"case": where, **res})
     return cases
@@ -412,7 +507,136 @@ def kernels_main_shape(xq, pipe):
         None, n_bytes=live_bytes, n_flop=0,
         slots={"tiny": int(tiny.sum()), "short": int(short.sum()),
                "long": int(long_.sum())})
+    del got, mag, dph, satcs, packed
+    kernels_block_shape(xq, pipe, row)
     return rows
+
+
+def kernels_block_shape(xq, pipe, row):
+    """The streamed path's kernels against their plain versions, and timed,
+    at the streamed block's shape: block 1 of the dense capture with its
+    halo, M = 64 x (65536 + 1024) frames, entered with the packed history of
+    block 0's tail."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+
+    m, t_len = M_MAIN, BLOCK_FRAMES + HALO_FRAMES
+    taps = pipe.channelizer.taps_rev
+    cfg = pipe.pdw_cfg
+    p = taps.shape[0]
+    f0 = BLOCK_FRAMES
+    blk = xq[f0 * m: (f0 + t_len) * m]
+    hist = xq[(f0 - (p - 1)) * m: f0 * m]
+    sat_level = cfg.saturation_level
+
+    # B6: against plain, and mag_cm / dph_cm the same bits as K1's
+    cm = k.channelize_streams_packed_cm(blk, taps, BIT_WIDTH, sat_level,
+                                        history=hist)
+    torch.cuda.synchronize()
+    res = compare_streams(blk, taps, BIT_WIDTH, sat_level, cm,
+                          "B6 block shape", history=hist)
+    k1 = k.channelize_streams_packed_cm2(blk, taps, BIT_WIDTH, sat_level,
+                                         history=hist)
+    check(same(cm[1], k1[0]) and same(cm[2], k1[1])
+          and same(torch.cumsum(cm[3], dim=1), k1[2]),
+          "B6 block shape: streams are not K1's bits")
+    del k1
+    mag_tm, mag, dph, sat = cm
+    row("channelize_streams_packed_cm", "channelizer.cu",
+        "channelizer_kernel.py:655", res["mag_err"], False,
+        time_ms(lambda: k.channelize_streams_packed_cm(
+            blk, taps, BIT_WIDTH, sat_level, history=hist)),
+        time_ms(lambda: k.channelize_streams_packed_cm_plain(
+            blk, taps, BIT_WIDTH, sat_level, history=hist), reps=3, warmup=1),
+        None,
+        n_bytes=(blk.numel() + hist.numel()) * blk.element_size()
+        + 4 * 4 * m * t_len + 4 * (p * m + 2 * m * m),
+        n_flop=t_len * (4 * p * m + 8 * m * m), mag_cm_equals_k1=True,
+        shape=f"M={m} T={t_len}", **res)
+
+    # B7, entered with a mixed state
+    nf = k.noise_floor_cm(mag, t_len)
+    lead = nf * 10.0 ** (cfg.snr_threshold_db / 10.0)
+    entry = (torch.arange(m, device=mag.device) % 2).to(torch.float32)
+    a = k.latch_cumsums(mag_tm, lead, lead, entry)
+    b = k.latch_cumsums_plain(mag_tm, lead, lead, entry)
+    check(same(a, b), f"B7 block shape: off by {max_abs(a, b):.3g}")
+    check(same(a, k.latch_cumsums_cm(mag, lead, lead, m, entry)),
+          "B7 block shape: differs from K3 on the flip")
+    del b
+    row("latch_cumsums", "latch.cu", "latch_kernel.py:283", 0.0, True,
+        time_ms(lambda: k.latch_cumsums(mag_tm, lead, lead, entry)),
+        time_ms(lambda: k.latch_cumsums_plain(mag_tm, lead, lead, entry),
+                reps=3, warmup=1),
+        None, n_bytes=(4 + 8) * m * t_len + 12 * m, n_flop=0,
+        shape=f"M={m} T={t_len}")
+
+    # K4 with the saturation mask: the slot grid at the full window, and the
+    # two tiers as flat lists, as the streamed block's tail calls them
+    packed = k.latch_cumsums(mag_tm, lead, lead)
+    toa, te = slot_grids(packed, m, cfg.max_pulses, t_len)
+    del packed, a
+    w = cfg.max_pulse_samples
+    plen = te - toa + 1
+    closed = (toa < t_len) & (te < t_len)
+    tiny = closed & (plen <= 2)
+    short = closed & ~tiny & (plen <= 128)
+    long_ = (toa < t_len) & ~tiny & ~short
+    sentinel = torch.full((), t_len, dtype=torch.int32, device=toa.device)
+    chan = torch.arange(m, dtype=torch.int32,
+                        device=toa.device).repeat_interleave(toa.shape[1])
+
+    def stats_bytes(t_s, e_s, win, per_slot):
+        live = t_s < t_len
+        n_mag = (torch.minimum(t_s + torch.clamp(e_s - t_s + 1, max=win),
+                               sentinel) - t_s).clamp(min=0)
+        # live samples of |y| and the phase step once, the interior of the
+        # mask once; per slot its indices read and three values written
+        n = (2 * n_mag - 1).clamp(min=0) + (n_mag - 2).clamp(min=0)
+        return int((live * n).sum()) * 4 + per_slot * t_s.numel()
+
+    grid = (torch.where(~tiny, toa, sentinel), torch.where(~tiny, te, sentinel))
+    a = k.pulse_stats(mag, dph, *grid, w, t_len, sat)
+    b = k.pulse_stats_plain(mag, dph, *grid, w, t_len, sat)
+    check(all(same(x, y) for x, y in zip(a, b)),
+          "K4 sat_cm block shape: differs from plain")
+    row("pulse_stats_sat", "pulse_stats.cu", "pulse_stats_kernel.py:771",
+        max(max_abs(x, y) for x, y in zip(a, b)), True,
+        time_ms(lambda: k.pulse_stats(mag, dph, *grid, w, t_len, sat)),
+        time_ms(lambda: k.pulse_stats_plain(mag, dph, *grid, w, t_len, sat),
+                reps=3, warmup=1),
+        None, n_bytes=stats_bytes(*grid, w, 8 + 12), n_flop=0,
+        shape=f"M={m} T={t_len}", flagged=int(a[2].sum()),
+        live_slots=int((grid[0] < t_len).sum()))
+    del a, b
+
+    tiers = [(torch.where(s_, toa, sentinel).reshape(-1),
+              torch.where(s_, te, sentinel).reshape(-1), win)
+             for s_, win in ((short, 128), (long_, w))]
+    err, n_bytes, flagged = 0.0, 0, 0
+    for t_s, e_s, win in tiers:
+        a = k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan, win, t_len)
+        b = k.pulse_stats_dense_plain(mag, dph, sat, t_s, e_s, chan, win,
+                                      t_len)
+        check(all(same(x, y) for x, y in zip(a, b)),
+              f"K4 dense block shape window={win}: differs from plain")
+        err = max([err] + [max_abs(x, y) for x, y in zip(a, b)])
+        n_bytes += stats_bytes(t_s, e_s, win, 12 + 12)
+        flagged += int(a[2].sum())
+        del a, b
+    row("pulse_stats_dense", "pulse_stats.cu", "pulse_stats_kernel.py:771",
+        err, True,
+        time_ms(lambda: [k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan,
+                                             win, t_len)
+                         for t_s, e_s, win in tiers]),
+        time_ms(lambda: [k.pulse_stats_dense_plain(mag, dph, sat, t_s, e_s,
+                                                   chan, win, t_len)
+                         for t_s, e_s, win in tiers], reps=3, warmup=1),
+        None, n_bytes=n_bytes, n_flop=0, shape=f"M={m} T={t_len}",
+        flagged=flagged,
+        slots={"tiny": int(tiny.sum()), "short": int(short.sum()),
+               "long": int(long_.sum())})
 
 
 def pdws_agree(a: dict, b: dict, where: str) -> None:
@@ -519,6 +743,186 @@ def phase_main_path(pipe, caps):
     return launches
 
 
+def write_segment(tmp: str, parts, fs: float, t0: float) -> None:
+    """Contiguous ``.iq`` files, one per part, start times continuing."""
+    from sdr_channelizer_tpu_torch.io import iqpacket
+
+    done = 0
+    for i, part in enumerate(parts):
+        hdr = iqpacket.IqHeader(
+            frequency_hz=0.0, bandwidth_hz=fs, sample_rate_sps=fs,
+            rx_gain_db=0, num_samples=len(part), bit_width=BIT_WIDTH,
+            sample_start_time=t0 + done / fs)
+        iqpacket.write_iq(os.path.join(tmp, f"dwell{i:02d}.iq"), hdr, part)
+        done += len(part)
+
+
+def stream_counts():
+    from sdr_channelizer_tpu_torch.ops.cuda import (
+        channelizer_kernel, latch_kernel, pulse_stats_kernel)
+
+    return {"channelize_streams_packed_cm": channelizer_kernel.launches_cm,
+            "latch_cumsums": latch_kernel.launches_tm,
+            "pulse_stats_sat": pulse_stats_kernel.launches,
+            "pulse_stats_dense": pulse_stats_kernel.launches_dense}
+
+
+def reset_stream_counts() -> None:
+    from sdr_channelizer_tpu_torch.ops.cuda import (
+        channelizer_kernel, latch_kernel, pulse_stats_kernel)
+
+    channelizer_kernel.launches_cm = 0
+    latch_kernel.launches_tm = 0
+    pulse_stats_kernel.launches = 0
+    pulse_stats_kernel.launches_dense = 0
+
+
+def pdws_identical(a: dict, b: dict, where: str) -> None:
+    for key in a:
+        check(np.array_equal(a[key], b[key], equal_nan=True),
+              f"{where}: {key} is not bit-identical")
+
+
+def phase_streaming(pipe, caps):
+    """The streamed path at full width: the sparse capture four times over
+    as four contiguous files (67,108,864 samples, 16 blocks), held against
+    single-shot extraction of the same samples, its plain run and its own
+    resume; then the dense capture as one file."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.dsp.streaming import (
+        CaptureSet, StreamingExtractor)
+    from sdr_channelizer_tpu_torch.models import ChannelizerPipeline
+
+    fs = M_MAIN * 1e6
+    t0 = 1723800000.0
+    cfg = pipe.pdw_cfg
+    n_blocks = STREAM_FILES * FRAMES_MAIN // BLOCK_FRAMES
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_segment(tmp, [caps["sparse"]] * STREAM_FILES, fs, t0)
+        cset = CaptureSet.from_dir(tmp)
+        check(len(cset.segments) == 1
+              and len(cset.segments[0].paths) == STREAM_FILES,
+              "streaming: the four files are not one contiguous segment")
+        seg = cset.segments[0]
+        n = seg.num_samples
+        ext = StreamingExtractor(pipe.channelizer, cfg,
+                                 block_frames=BLOCK_FRAMES, device=DEVICE)
+        ck = os.path.join(tmp, "ck")
+
+        reset_stream_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        got = ext.extract_segment_fused(seg, checkpoint_dir=ck)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = stream_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # (e) floor pass and detect pass of every block went through B6, the
+        # detect pass through B7 and both statistics tiers
+        check(launches["channelize_streams_packed_cm"] == 2 * n_blocks
+              and launches["latch_cumsums"] == n_blocks
+              and launches["pulse_stats_dense"] >= n_blocks,
+              f"streaming: launch counts {launches} for {n_blocks} blocks")
+        check(ext.counters.get("nf_device_count_d2h_bytes") > 0,
+              "streaming: the noise floor did not take the device counts")
+        check(len(got["toa"]) > 0, "streaming: no pulses")
+
+        # (a) single-shot extraction of the same samples; its slot cap is
+        # per capture, the streamed one per block, so it gets four times
+        # the slots
+        single = ChannelizerPipeline(
+            pipe.channelizer, PdwConfig.channelized(
+                max_pulses=STREAM_FILES * cfg.max_pulses,
+                max_pulse_samples=cfg.max_pulse_samples), DEVICE)
+        whole = np.concatenate([caps["sparse"]] * STREAM_FILES)
+        nf1, _, batch = single.forward_packed(
+            torch.as_tensor(pack(whole)), BIT_WIDTH)
+        ref = single._finalize(batch, fs, 0.0, t0)
+        del batch, whole
+        check(int(ref["channel"].size) > 0 and np.bincount(
+            ref["channel"]).max() < single.pdw_cfg.max_pulses,
+            "streaming: the single-shot reference hit its slot cap")
+        pdws_agree(got, ref, "streaming vs single-shot")
+        check(np.array_equal(got["mag"], ref["mag"]),
+              "streaming vs single-shot: mag differs")
+        # (d) the streamed floor is the single-shot K2 floor
+        nf_s = np.load(os.path.join(ck, "noise_floor.npz"))["nf"]
+        check(np.array_equal(nf_s, nf1.cpu().numpy()),
+              "streaming: noise floor differs from the single-shot one")
+        del nf1, ref
+        torch.cuda.empty_cache()
+
+        # (c) resume after losing the last two blocks
+        files = sorted(f for f in os.listdir(ck) if f.startswith("block_"))
+        check(len(files) == n_blocks, f"streaming: {len(files)} checkpoints")
+        for f in files[-2:]:
+            os.remove(os.path.join(ck, f))
+        ext2 = StreamingExtractor(pipe.channelizer, cfg,
+                                  block_frames=BLOCK_FRAMES, device=DEVICE)
+        resumed = ext2.extract_segment_fused(seg, checkpoint_dir=ck)
+        pdws_identical(resumed, got, "streaming, resumed")
+        n_resumed = int(ext2.counters.get("blocks_resumed_from_checkpoint"))
+        check(n_resumed == n_blocks - 2,
+              f"streaming: {n_resumed} blocks resumed")
+
+        # (b) the same run through the plain versions
+        plain = StreamingExtractor(
+            pipe.channelizer, cfg, block_frames=BLOCK_FRAMES, device=DEVICE,
+            plain=True).extract_segment_fused(seg)
+        pdws_agree(got, plain, "streaming, kernels vs plain")
+        for key in ("toa", "freq", "pw", "mag", "snr"):
+            vals = got[key]
+            ok = np.isfinite(vals) | (np.isnan(vals) if key == "freq" else False)
+            check(bool(ok.all()), f"streaming: non-finite {key}")
+        out["sparse_four_files"] = {
+            "files": STREAM_FILES, "samples": n, "blocks": n_blocks,
+            "pulses": len(got["toa"]), "pulses_plain": len(plain["toa"]),
+            "equals_single_shot": True, "equals_plain": True,
+            "resume_bit_identical": True, "blocks_resumed": n_resumed,
+            "noise_floor_equals_single_shot": True,
+            "wall_s": wall, "msamples_per_s": n / wall / 1e6,
+            "peak_memory_bytes": peak, "launches": dict(launches),
+            "counters": ext.counters.snapshot()["counters"]}
+        del plain, resumed
+
+    # the dense capture as one file: every channel at its slot cap in every
+    # block, all pulses short, so max_pulse_samples = 128 holds them and the
+    # single-tier form (the slot grid with the mask) is what runs
+    dcfg = PdwConfig.channelized(max_pulses=cfg.max_pulses,
+                                 max_pulse_samples=128)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_segment(tmp, [caps["dense"]], fs, t0)
+        seg = CaptureSet.from_dir(tmp).segments[0]
+        reset_stream_counts()
+        got = StreamingExtractor(
+            pipe.channelizer, dcfg, block_frames=BLOCK_FRAMES,
+            device=DEVICE).extract_segment_fused(seg)
+        dense_launches = stream_counts()
+        plain = StreamingExtractor(
+            pipe.channelizer, dcfg, block_frames=BLOCK_FRAMES, device=DEVICE,
+            plain=True).extract_segment_fused(seg)
+    band = DENSE_COUNT_BAND * len(plain["toa"])
+    check(abs(len(got["toa"]) - len(plain["toa"])) <= band,
+          f"streaming, dense capture: {len(got['toa'])} pulses vs "
+          f"{len(plain['toa'])} from the plain versions")
+    check(dense_launches["pulse_stats_sat"] > 0,
+          "streaming, dense capture: the slot-grid statistics never ran")
+    out["dense_one_file"] = {
+        "samples": seg.num_samples,
+        "blocks": FRAMES_MAIN // BLOCK_FRAMES, "pulses": len(got["toa"]),
+        "pulses_plain": len(plain["toa"]),
+        "saturated": int(got["sat"].sum()), "launches": dense_launches}
+    launches["pulse_stats_sat"] = dense_launches["pulse_stats_sat"]
+    emit("streaming", bands=M_MAIN, block_frames=BLOCK_FRAMES,
+         halo_frames=HALO_FRAMES, bit_width=BIT_WIDTH,
+         max_pulses=cfg.max_pulses,
+         max_pulse_samples=cfg.max_pulse_samples, **out)
+    return launches
+
+
 def phase_profile(pipe, caps):
     """Only with ``--profile``: device time by kernel name over a few steps
     of the main path, from ``torch.profiler``."""
@@ -555,9 +959,114 @@ def phase_profile(pipe, caps):
         del xq
 
 
+def phase_profile_streaming(pipe, caps):
+    """Only with ``--profile``: where a streamed block's time goes.  One
+    file of the sparse capture (4 blocks); the steps of block 1 of the
+    detect pass one by one on the host clock, each ended by a device
+    synchronise (median of 5); then the device time by kernel name over one
+    whole ``extract_segment_fused``, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+    from sdr_channelizer_tpu_torch.dsp import streaming
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+
+    fs = M_MAIN * 1e6
+    cfg = pipe.pdw_cfg
+    chan = pipe.channelizer
+    m, p = chan.num_bands, chan.taps_per_band
+    dev = pipe.device
+
+    def clock(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out), res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_segment(tmp, [caps["sparse"]], fs, 0.0)
+        seg = streaming.CaptureSet.from_dir(tmp).segments[0]
+        ext = streaming.StreamingExtractor(chan, cfg, block_frames=BLOCK_FRAMES,
+                                           device=DEVICE)
+        f0, t_k, h_k = BLOCK_FRAMES, BLOCK_FRAMES, HALO_FRAMES
+        steps = {}
+        def read():
+            return seg.read_samples_raw((f0 - (p - 1)) * m,
+                                        (p - 1 + t_k + h_k) * m)
+
+        # the path copies straight from the file's mapped pages; read alone
+        # (a host copy out of the page cache) and the copy alone (from that
+        # pageable array) are timed beside it
+        steps["read_and_h2d_ms"], _ = clock(lambda: torch.as_tensor(
+            streaming._packed_view(read())).to(dev))
+        steps["read_ms"], raw = clock(lambda: np.array(read()))
+        packed = streaming._packed_view(raw)
+        steps["h2d_ms"], xq = clock(lambda: torch.as_tensor(packed).to(dev))
+        hist, blk = xq[: (p - 1) * m], xq[(p - 1) * m:]
+        steps["channelize_cm_ms"], cm = clock(
+            lambda: k.channelize_streams_packed_cm(
+                blk, chan.taps_rev, BIT_WIDTH, cfg.saturation_level,
+                history=hist))
+        mag, mag_cm, dph_cm, sat_cm = cm
+        nf = k.noise_floor_cm(mag_cm, t_k + h_k)
+        entry = torch.zeros(m, dtype=torch.bool, device=dev)
+        lead = nf * 10.0 ** (cfg.snr_threshold_db / 10.0)
+        steps["latch_ms"], _ = clock(
+            lambda: k.latch_cumsums(mag, lead, lead, entry.float()))
+        steps["tail_ms"], batch = clock(
+            lambda: pdwmod._extract_channelized_pallas_stats(
+                mag, None, None, cfg, nf, entry_active=entry, own_len=t_k,
+                cm_streams=(mag_cm, dph_cm, sat_cm)))
+        steps["block_transfer_ms"], _ = clock(
+            lambda: pdwmod.block_transfer(
+                mag_cm[:, :t_k], nf[:, None], cfg.snr_threshold_db,
+                cfg.trailing_threshold_db))
+        steps["batch_d2h_ms"], host = clock(
+            lambda: pdwmod.batch_to_host(batch))
+        path = os.path.join(tmp, "block.npz")
+        steps["npz_write_ms"], _ = clock(lambda: np.savez(
+            path, a=np.zeros(m, bool), b=np.ones(m, bool),
+            **{f.name: getattr(host, f.name)
+               for f in dataclasses.fields(pdwmod.PdwBatch)}))
+        # "tail" is the whole block tail: latch, search, statistics, masks
+        steps["search_stats_rest_ms"] = steps["tail_ms"] - steps["latch_ms"]
+
+        ext.extract_segment_fused(seg)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ext.extract_segment_fused(seg)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        is_kernel = getattr(ev, "device_type", None) is not None and \
+            "cuda" in str(ev.device_type).lower()
+        if is_kernel and dev_us > 0:
+            rows.append({"kernel": ev.key[:80], "calls": ev.count,
+                         "ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["ms"])
+    busy = sum(r["ms"] for r in rows)
+    emit("profile_streaming", capture="sparse, one file, 4 blocks",
+         block_steps_ms=steps, run_wall_ms_under_profiler=wall_ms,
+         device_busy_ms=busy, kernels=rows[:14],
+         rest_ms=sum(r["ms"] for r in rows[14:]))
+
+
 def phase_cli():
-    """A synthetic ``.iq`` file through ``pdw --channelized`` on the card."""
+    """A synthetic ``.iq`` file through ``pdw --channelized`` on the card,
+    then the same samples as two files through ``pdw --stream``."""
     from sdr_channelizer_tpu_torch.cli.main import main
+    from sdr_channelizer_tpu_torch.io import iqpacket
     from sdr_channelizer_tpu_torch.signal.synth import (
         PulseTrainSpec, pulse_starts, write_training_iq)
 
@@ -568,11 +1077,28 @@ def phase_cli():
         path = os.path.join(tmp, "cap.iq")
         out = os.path.join(tmp, "pdw.npz")
         write_training_iq(path, spec, sample_start_time=1723800000.0)
-        rc = main(["pdw", path, "--channelized", "--max-pulses", "64",
-                   "--max-pulse-samples", "1024", "--device", DEVICE,
-                   "--out", out])
+        common = ["--max-pulses", "64", "--max-pulse-samples", "1024",
+                  "--device", DEVICE]
+        rc = main(["pdw", path, "--channelized", "--out", out] + common)
         check(rc == 0, f"cli: exit code {rc}")
         p = dict(np.load(out))
+
+        # the same samples as two contiguous files through pdw --stream
+        hdr, samples = iqpacket.read_iq(path)
+        samples = np.asarray(samples)
+        half = len(samples) // 2
+        parts = [os.path.join(tmp, f"part{i}.iq") for i in range(2)]
+        for i, part in enumerate((samples[:half], samples[half:])):
+            iqpacket.write_iq(parts[i], dataclasses.replace(
+                hdr, num_samples=len(part),
+                sample_start_time=hdr.sample_start_time
+                + i * half / hdr.sample_rate_sps), part)
+        out = os.path.join(tmp, "pdw_stream.npz")
+        rc = main(["pdw", *parts, "--stream", "--channelized",
+                   "--block-frames", "1024", "--checkpoint-dir",
+                   os.path.join(tmp, "ck"), "--out", out] + common)
+        check(rc == 0, f"cli --stream: exit code {rc}")
+        ps = dict(np.load(out))
     starts = pulse_starts(spec)
     sel = (p["snr"] > 25) & (np.abs(p["freq"] - spec.frequency_hz) < 0.5e6)
     check(int(sel.sum()) == len(starts),
@@ -582,8 +1108,9 @@ def phase_cli():
     check(float(np.abs(toa - want).max()) < 4e-6, "cli: TOA off the truth")
     check(float(np.abs(p["pw"][sel] - spec.pulse_width_sec).max()) < 12e-6,
           "cli: pulse width off the truth")
+    pdws_agree(ps, p, "cli --stream vs cli")
     emit("cli", pulses=int(len(p["toa"])), in_tone_bin=int(sel.sum()),
-         sent=int(len(starts)))
+         sent=int(len(starts)), stream_pulses=int(len(ps["toa"])))
 
 
 def main() -> int:
@@ -617,10 +1144,14 @@ def main() -> int:
         del xq
         torch.cuda.empty_cache()
         emit("kernels", small_shapes=small, main_shape="M=64 T=262144, dense "
-             "capture", checked=[r["name"] for r in rows])
+             "capture", block_shape=f"M=64 T={BLOCK_FRAMES + HALO_FRAMES}, "
+             "block 1 of the dense capture",
+             checked=[r["name"] for r in rows])
         launches = phase_main_path(pipe, caps)
+        launches.update(phase_streaming(pipe, caps))
         if "--profile" in sys.argv[1:]:
             phase_profile(pipe, caps)
+            phase_profile_streaming(pipe, caps)
         phase_cli()
     except SmokeFailure as e:
         print(json.dumps({"ok": False, "error": str(e)}), flush=True)
@@ -628,6 +1159,11 @@ def main() -> int:
 
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["launches"] <= 0:
+            print(json.dumps({"ok": False, "error":
+                              f"{r['name']} was launched on no path"}),
+                  flush=True)
+            return 1
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""CLI entry point of the port: ``generate`` and ``pdw --channelized``.
+"""CLI entry point of the port: ``generate``, ``pdw --channelized`` and
+``pdw --stream [--channelized]``.
 
 The other workflows of the JAX package's CLI are not ported yet and exit
 with an error that says so.
@@ -56,19 +57,77 @@ def _bands_for(args, fs: float) -> int:
     return bands_for_bin_width(fs, args.bin_width_hz)
 
 
+def _save_pdws(args, all_pdws) -> int:
+    merged = {k: np.concatenate([p[k] for p in all_pdws]) for k in all_pdws[0]}
+    order = np.argsort(merged["toa"], kind="stable")
+    merged = {k: v[order] for k, v in merged.items()}
+    out = args.out or "pdw.npz"
+    np.savez(out, **merged)
+    print(out)
+    return 0
+
+
+def _pdw_stream(args) -> int:
+    """Blockwise streaming extraction over contiguous multi-file capture
+    segments (``dsp/streaming.py``): O(block) memory, exact two-pass noise
+    floor, optional checkpoint/resume.  The path for capture series and for
+    files too large for one device buffer."""
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
+    from sdr_channelizer_tpu_torch.dsp.streaming import (
+        CaptureSet,
+        StreamingExtractor,
+    )
+    from sdr_channelizer_tpu_torch.utils.metrics import Counters
+
+    counters = Counters()
+    all_pdws = []
+    cset = CaptureSet.from_paths([os.fspath(p) for p in args.files])
+    for si, seg in enumerate(cset.segments):
+        hdr = seg.headers[0]
+        fs = hdr.sample_rate_sps
+        make_cfg = PdwConfig.channelized if args.channelized \
+            else PdwConfig.wideband
+        cfg = make_cfg(max_pulses=args.max_pulses,
+                       max_pulse_samples=args.max_pulse_samples)
+        if args.threshold_db is not None:
+            cfg = dataclasses.replace(cfg, snr_threshold_db=args.threshold_db)
+        chan = Channelizer.create(_bands_for(args, fs)) if args.channelized \
+            else None
+        ext = StreamingExtractor(channelizer=chan, pdw_cfg=cfg,
+                                 block_frames=args.block_frames,
+                                 counters=counters, device=args.device)
+        ck = (os.path.join(args.checkpoint_dir, f"seg{si:03d}")
+              if args.checkpoint_dir else None)
+        # Channelized segments take the packed block path through the
+        # kernels; wideband segments the plain PyTorch block path.
+        run = ext.extract_segment_fused if chan is not None \
+            else ext.extract_segment
+        pdws = run(seg, fc=hdr.frequency_hz, checkpoint_dir=ck)
+        all_pdws.append(pdws)
+        print(f"segment {si} ({len(seg.paths)} files, "
+              f"{seg.num_samples} samples): {len(pdws['toa'])} pulses")
+    counters.add("files_processed", len(args.files))
+    if args.metrics:
+        print(counters.to_json())
+    return _save_pdws(args, all_pdws)
+
+
 def cmd_pdw(args) -> int:
     """create_pdws_channelized.m parity for integer-payload ``.iq`` files,
-    through the packed main path."""
+    through the packed main path; with ``--stream``, blockwise over
+    contiguous multi-file segments."""
     from sdr_channelizer_tpu_torch.config import PdwConfig
     from sdr_channelizer_tpu_torch.io.convert import load_capture_raw
     from sdr_channelizer_tpu_torch.models import ChannelizerPipeline
 
-    if args.stream:
-        raise _not_ported("pdw --stream (blockwise streaming extraction)")
     if args.shards > 1:
         raise _not_ported("pdw --shards (multi-device extraction)")
+    if args.stream:
+        return _pdw_stream(args)
     if not args.channelized:
-        raise _not_ported("wideband pdw (run with --channelized)")
+        raise _not_ported("wideband pdw (run with --channelized, or with "
+                          "--stream)")
 
     all_pdws = []
     for path in args.files:
@@ -91,14 +150,7 @@ def cmd_pdw(args) -> int:
             sample_start_time=float(meta.get("sampleStartTime", 0.0)))
         all_pdws.append(pdws)
         print(f"{path}: {len(pdws['toa'])} pulses")
-
-    merged = {k: np.concatenate([p[k] for p in all_pdws]) for k in all_pdws[0]}
-    order = np.argsort(merged["toa"], kind="stable")
-    merged = {k: v[order] for k, v in merged.items()}
-    out = args.out or "pdw.npz"
-    np.savez(out, **merged)
-    print(out)
-    return 0
+    return _save_pdws(args, all_pdws)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -133,7 +185,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--shards", type=int, default=1,
                    help="(not ported yet) multi-device extraction")
     p.add_argument("--stream", action="store_true",
-                   help="(not ported yet) blockwise streaming extraction")
+                   help="blockwise streaming extraction over contiguous "
+                        "multi-file segments (O(block) memory, exact "
+                        "two-pass noise floor); with --channelized through "
+                        "the kernels, without it wideband in plain PyTorch")
+    p.add_argument("--block-frames", type=int, default=65536,
+                   help="frames per streaming block (--stream)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="per-block checkpoint/resume directory (--stream)")
+    p.add_argument("--metrics", action="store_true",
+                   help="print a structured-counters JSON line (--stream)")
     p.add_argument("--device", default=None,
                    help="torch device; default: the CUDA device (an error "
                         "when there is none); 'cpu' runs the plain PyTorch "

@@ -1,7 +1,8 @@
-"""DSP layer: channelizer and PDW extraction."""
+"""DSP layer: channelizer, PDW extraction and blockwise streaming."""
 
 from sdr_channelizer_tpu_torch.dsp.channelizer import (  # noqa: F401
     Channelizer,
+    ChannelizerState,
     center_frequencies,
     channelize,
     dft_matrix,
@@ -10,4 +11,9 @@ from sdr_channelizer_tpu_torch.dsp.pdw import (  # noqa: F401
     PdwBatch,
     extract_pdws_channelized,
     finalize_pdws,
+)
+from sdr_channelizer_tpu_torch.dsp.streaming import (  # noqa: F401
+    CaptureSet,
+    Segment,
+    StreamingExtractor,
 )

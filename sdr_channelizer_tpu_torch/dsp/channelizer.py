@@ -47,6 +47,14 @@ def dft_matrix(num_bands: int, shifted: bool = True, dtype=np.complex64) -> np.n
 
 
 @dataclasses.dataclass(frozen=True)
+class ChannelizerState:
+    """Carried streaming state: the last P frames of input (zeros at the
+    start of a capture)."""
+
+    frames: torch.Tensor  # (P, M) complex64
+
+
+@dataclasses.dataclass(frozen=True)
 class Channelizer:
     """Configured polyphase channelizer; ``taps_rev`` is the frame-aligned
     polyphase matrix ``Hr`` (P, M) float32."""
@@ -85,6 +93,23 @@ class Channelizer:
         return cls(num_bands=taps_rev.shape[1], taps_per_band=taps_rev.shape[0],
                    taps_rev=taps_rev)
 
+    def init_state(self, device=None) -> ChannelizerState:
+        p, m = self.taps_rev.shape
+        return ChannelizerState(frames=torch.zeros(
+            (p, m), dtype=torch.complex64, device=resolve_device(device)))
+
+    def stream_block(self, x_block, state: ChannelizerState,
+                     shift: bool = True, method: str = "fft"):
+        """Channelize one block carrying the filter history across calls;
+        returns ``(y (T, M) complex64, new state)``.  The block runs on the
+        state's device.
+
+        Splitting a capture into blocks and folding them through
+        ``stream_block`` gives the output of one :func:`channelize` call bit
+        for bit: the overlap-save contract of the streamed path."""
+        return _channelize_block(x_block, state, self.taps_rev,
+                                 self.num_bands, shift, method)
+
     def center_frequencies(self, sample_rate_sps: float) -> np.ndarray:
         return center_frequencies(self.num_bands, sample_rate_sps)
 
@@ -92,12 +117,21 @@ class Channelizer:
         return sample_rate_sps / self.num_bands
 
 
-def fir_branches(frames: torch.Tensor, taps_rev: torch.Tensor) -> torch.Tensor:
-    """Polyphase branch FIR over (T, M) frames with zero initial state, as
-    P shifted multiply-adds: ``u[n] = sum_p Hr[p] * F[n - p]``."""
+def fir_branches(frames: torch.Tensor, taps_rev: torch.Tensor,
+                 history: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Polyphase branch FIR over (T, M) frames, as P shifted multiply-adds:
+    ``u[n] = sum_p Hr[p] * F[n - p]``.  ``history`` holds the frames before
+    the first one, at least P-1 of them (the last P-1 are used); default
+    zeros, the initial state."""
     p = taps_rev.shape[0]
     t = frames.shape[0]
-    padded = torch.cat([frames.new_zeros((p - 1, frames.shape[1])), frames], dim=0)
+    if history is None:
+        head = frames.new_zeros((p - 1, frames.shape[1]))
+    else:
+        if history.shape[0] < p - 1:
+            raise ValueError(f"history needs at least {p - 1} frames")
+        head = history[history.shape[0] - (p - 1):].to(frames.dtype)
+    padded = torch.cat([head, frames], dim=0)
     u = torch.zeros_like(frames)
     for pp in range(p):
         u = u + taps_rev[pp] * padded[p - 1 - pp: p - 1 - pp + t]
@@ -116,11 +150,30 @@ def channelize(x, chan: Channelizer, shift: bool = True, method: str = "fft",
     n_frames = x.shape[-1] // m
     frames = x[: n_frames * m].reshape(n_frames, m)
     taps = torch.as_tensor(chan.taps_rev, device=device)
-    u = fir_branches(frames, taps)
+    return _bands(fir_branches(frames, taps), m, shift, method)
+
+
+def _bands(u: torch.Tensor, m: int, shift: bool, method: str) -> torch.Tensor:
+    """Branch outputs (T, M) -> channel outputs, by FFT or DFT product."""
     if method == "dft":
-        w = torch.as_tensor(dft_matrix(m, shifted=shift), device=device)
+        w = torch.as_tensor(dft_matrix(m, shifted=shift), device=u.device)
         return u @ w
     if method != "fft":
         raise ValueError(f"unknown method {method!r}")
     y = torch.fft.fft(u, dim=-1)
     return torch.fft.fftshift(y, dim=-1) if shift else y
+
+
+def _channelize_block(x_block, state: ChannelizerState, taps_rev,
+                      num_bands: int, shift: bool = True, method: str = "fft"):
+    """One block of :meth:`Channelizer.stream_block`."""
+    m = num_bands
+    dev = state.frames.device
+    x = torch.as_tensor(x_block).to(device=dev, dtype=torch.complex64)
+    n_frames = x.shape[-1] // m
+    frames = x[: n_frames * m].reshape(n_frames, m)
+    taps = torch.as_tensor(np.asarray(taps_rev, np.float32), device=dev)
+    y = _bands(fir_branches(frames, taps, state.frames), m, shift, method)
+    p = taps.shape[0]
+    all_frames = torch.cat([state.frames, frames], dim=0)
+    return y, ChannelizerState(frames=all_frames[all_frames.shape[0] - p:])

@@ -15,12 +15,21 @@ Semantics of the reference's sequential edge detectors (wideband
 * frequency is ``fc + fs * medPhaseDiff / 360``;
 * a pulse still active at the end of the capture is not emitted.
 
-Two extractors live here.  ``extract_pdws_core`` is the oracle: a two-bit
-latch over {set, reset, hold, toggle}, edge lists, gathered windows and
-sort-based medians, all plain PyTorch.  ``_extract_channelized_cm2`` is the
-main path's tail: it consumes the channelizer kernel's channel-major
-streams and runs the latch, the rank search and the per-pulse statistics
-through the hand-written kernels (``ops.cuda``).
+Two kinds of extractor live here.  ``extract_pdws_core`` and its block
+form ``extract_pdws_block_core`` are the oracle: a two-bit latch over {set,
+reset, hold, toggle}, edge lists, gathered windows and sort-based medians,
+all plain PyTorch.  ``_extract_channelized_cm2`` (the single-shot main
+path's tail) and ``_extract_channelized_pallas_stats`` (the streamed
+block's tail) consume the channelizer kernel's streams and run the latch,
+the rank search and the per-pulse statistics through the hand-written
+kernels (``ops.cuda``).
+
+The block contract, shared by the three block-capable extractors: the
+streams cover ``own_len`` owned samples plus a right halo, the latch enters
+in ``entry_active``, and a block emits exactly the pulses whose leading edge
+it owns; trailing edges and statistics may reach into the halo.  A block's
+exit state follows from ``block_transfer``, and transfers compose
+(``compose_transfer``), so blocks chain without looking back.
 
 Device code returns integer indices and float32 metrics; absolute times
 and frequencies are finalized on the host in float64
@@ -74,16 +83,32 @@ def _thresholds(noise_floor: torch.Tensor, cfg: PdwConfig):
     return lead, noise_floor * 10.0 ** (cfg.trailing_threshold_db / 10.0)
 
 
-def hysteresis_scan(ge_lead: torch.Tensor,
-                    le_trail: torch.Tensor) -> torch.Tensor:
-    """Pulse-active state after each sample along the last dimension.
+def compose_transfer(f1, f2):
+    """Compose boolean-latch transfer functions: apply ``f1``, then ``f2``.
+
+    A transfer function is the pair ``(f(0), f(1))``; the composition is
+    ``(f2(a1), f2(b1))`` and is associative.  It chains the latch across
+    streamed blocks (identity ``(False, True)``)."""
+    a1, b1 = f1
+    a2, b2 = f2
+    return torch.where(a1, b2, a2), torch.where(b1, b2, a2)
+
+
+def hysteresis_fns(ge_lead: torch.Tensor, le_trail: torch.Tensor,
+                   dim: int = -1):
+    """Prefix transfer functions ``(a, b)`` of the pulse-active latch along
+    ``dim``.
 
     Each sample is a transfer function of the boolean latch, the pair
     ``(f(0), f(1)) = (ge_lead, ~le_trail)``: set, reset, hold, or (when a
-    sample meets both thresholds at once) toggle.  The state is that of the
-    last set or reset at or before the sample, else inactive (the
-    reference's ``pulseActive = false``), flipped once per toggle since.
+    sample meets both thresholds at once) toggle.  At each position ``a`` is
+    the state had the latch started inactive, ``b`` had it started active:
+    the state of the last set or reset at or before the sample, else the
+    start state, flipped once per toggle since.  An entry state seeds it as
+    ``torch.where(entry, b, a)``.
     """
+    ge_lead = ge_lead.movedim(dim, -1)
+    le_trail = le_trail.movedim(dim, -1)
     t_len = ge_lead.shape[-1]
     const = ge_lead ^ le_trail           # set (1, 1) or reset (0, 0)
     toggle = ge_lead & le_trail          # (1, 0)
@@ -91,11 +116,22 @@ def hysteresis_scan(ge_lead: torch.Tensor,
     last = torch.cummax(
         torch.where(const, pos, torch.full_like(pos, -1)), dim=-1).values
     safe = last.clamp(min=0)
-    base = (last >= 0) & torch.gather(ge_lead, -1, safe)
+    seen = last >= 0
+    picked = torch.gather(ge_lead, -1, safe)
     tc = torch.cumsum(toggle.to(torch.int32), dim=-1)
-    since = tc - torch.where(last >= 0, torch.gather(tc, -1, safe),
+    since = tc - torch.where(seen, torch.gather(tc, -1, safe),
                              torch.zeros_like(tc))
-    return base ^ (since % 2 == 1)
+    odd = since % 2 == 1
+    a = (seen & picked) ^ odd
+    b = (~seen | picked) ^ odd
+    return a.movedim(-1, dim), b.movedim(-1, dim)
+
+
+def hysteresis_scan(ge_lead: torch.Tensor,
+                    le_trail: torch.Tensor) -> torch.Tensor:
+    """Pulse-active state after each sample along the last dimension, the
+    latch starting inactive (the reference's ``pulseActive = false``)."""
+    return hysteresis_fns(ge_lead, le_trail)[0]
 
 
 def _edge_indices(edge: torch.Tensor, max_pulses: int) -> torch.Tensor:
@@ -134,6 +170,73 @@ def extract_pdws_core(
     valid = torch.arange(cfg.max_pulses, device=mag.device) < count[..., None]
     return _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx,
                        te_idx, valid, count, cfg.max_pulse_samples)
+
+
+def extract_pdws_block_core(
+    mag: torch.Tensor,
+    phase_deg: torch.Tensor,
+    sat_sample: torch.Tensor,
+    noise_floor: torch.Tensor,
+    entry_active: torch.Tensor,
+    own_len: int,
+    cfg: PdwConfig,
+) -> PdwBatch:
+    """The oracle extractor for one time block (the block contract above).
+
+    ``mag``, ``phase_deg``, ``sat_sample``: (T,) or (M, T), ``own_len`` owned
+    samples and then the right halo: the head of the next block, or +inf
+    magnitude past the end of the capture, which keeps the latch set so the
+    last pulse stays unmatched.  ``noise_floor`` and the boolean
+    ``entry_active``: scalar or (M,).  With a halo at least one sample longer
+    than the longest pulse, the blocks' PDWs, offset by the block starts,
+    are those of :func:`extract_pdws_core` over the whole capture.
+    """
+    max_pulses = cfg.max_pulses
+    lead, trail = _thresholds(noise_floor, cfg)
+    a, b = hysteresis_fns(mag >= lead[..., None], mag <= trail[..., None])
+    entry = entry_active[..., None]
+    state = torch.where(entry, b, a)
+    prev = torch.cat([entry.expand_as(state[..., :1]), state[..., :-1]], -1)
+    lead_edge = state & ~prev
+    trail_edge = ~state & prev
+
+    t_total = mag.shape[-1]
+    owned_lead = lead_edge & (torch.arange(t_total, device=mag.device)
+                              < own_len)
+    toa_idx = _edge_indices(owned_lead, max_pulses)
+    # Latch events alternate; when the block enters active, its first event
+    # is the trailing edge of the previous block's pulse: skip it.
+    trail_all = _edge_indices(trail_edge, max_pulses + 1)
+    slot = torch.arange(max_pulses, device=mag.device)
+    te_idx = torch.gather(
+        trail_all, -1,
+        (slot + entry.to(torch.int64)).expand(*trail_all.shape[:-1],
+                                              max_pulses))
+    n_own = owned_lead.sum(-1)
+    matched = (slot < n_own[..., None]) & (te_idx < t_total)
+    count = matched.sum(-1).to(torch.int32)
+    return _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx,
+                       te_idx, matched, count, cfg.max_pulse_samples)
+
+
+def block_transfer(mag: torch.Tensor, noise_floor: torch.Tensor,
+                   snr_threshold_db: float,
+                   trailing_threshold_db: Optional[float]):
+    """Whole-block latch transfer function ``(f(0), f(1))`` over the last
+    dimension of ``mag``; ``noise_floor`` broadcasts against it.  Composing
+    these across blocks gives each block's ``entry_active``."""
+    lead = noise_floor * 10.0 ** (snr_threshold_db / 10.0)
+    trail = lead if trailing_threshold_db is None else \
+        noise_floor * 10.0 ** (trailing_threshold_db / 10.0)
+    a, b = hysteresis_fns(mag >= lead, mag <= trail)
+    return a[..., -1], b[..., -1]
+
+
+def batch_to_host(batch: PdwBatch) -> PdwBatch:
+    """The batch with every field a NumPy array on the host."""
+    return PdwBatch(**{
+        f.name: getattr(batch, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(PdwBatch)})
 
 
 def _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx, te_idx,
@@ -235,6 +338,9 @@ def _extract_channelized_cm2(
     t_len: int,
     m: int,
     ops=kernels.KERNELS,
+    entry_active: Optional[torch.Tensor] = None,
+    own_len: Optional[int] = None,
+    mag_latch_cm: Optional[torch.Tensor] = None,
 ) -> PdwBatch:
     """Channel-major extraction: the main path's tail.
 
@@ -255,8 +361,12 @@ def _extract_channelized_cm2(
     * Saturation comes from the cumulative count: the interior samples
       ``toa + 1 .. te - 1`` hold ``S[te - 1] - S[toa]`` saturated ones.
 
-    The latch starts inactive and the whole capture is owned (the block
-    contract of the sharded and streamed callers is not ported yet).
+    ``entry_active`` (per channel) and ``own_len`` give this path the block
+    contract of :func:`extract_pdws_block_core`; the defaults are the whole
+    capture: the latch starts inactive and everything is owned.
+    ``mag_latch_cm`` is an optional magnitude for the latch alone (a caller
+    writes +inf over halo columns past the end of the capture there, so an
+    open pulse never closes); the statistics keep reading ``mag_cm``.
     """
     if t_len < 1:
         raise ValueError("capture shorter than one channelizer frame")
@@ -264,17 +374,29 @@ def _extract_channelized_cm2(
     w = cfg.max_pulse_samples
     r = mag_cm.shape[0]
     dev = mag_cm.device
+    own = t_len if own_len is None else own_len
 
     lead_thresh, trail_thresh = _thresholds(noise_floor, cfg)
-    packed = ops.latch(mag_cm[:, :t_len].contiguous(), lead_thresh,
-                       trail_thresh, m)
+    latch_in = mag_cm if mag_latch_cm is None else mag_latch_cm
+    entry_f = None if entry_active is None else \
+        entry_active.to(device=dev, dtype=torch.float32)
+    packed = ops.latch(latch_in[:, :t_len].contiguous(), lead_thresh,
+                       trail_thresh, m, entry_f)
     # (2R, t_len): rows [0, R) lead counts, [R, 2R) trail: one search.
+    # When the block enters active, its first trailing edge closes the
+    # previous block's pulse: skip it (latch events alternate).
     ranks = torch.arange(1, p_slots + 1, dtype=torch.float32,
                          device=dev).expand(2 * r, p_slots)
+    if entry_f is not None:
+        skip = torch.zeros(2 * r, dtype=torch.float32, device=dev)
+        skip[r:r + m] = entry_f
+        ranks = ranks + skip[:, None]
     idx = find_ranks_cm(packed, ranks, t_len)
     toa_idx = idx[:m]
     te_idx = idx[r:r + m]
-    n_own = packed[:m, t_len - 1].to(torch.int32)
+    # leading edges in the owned region; ranks past n_own point into the
+    # halo and are masked out by `matched`
+    n_own = packed[:m, own - 1].to(torch.int32)
 
     slot = torch.arange(p_slots, device=dev)
     matched = (slot < n_own[:, None]) & (te_idx < t_len)
@@ -335,6 +457,149 @@ def _extract_channelized_cm2(
     )
 
 
+def extract_pdws_channelized_streams_cm(
+    mag: torch.Tensor,
+    mag_cm: torch.Tensor,
+    dph_cm: torch.Tensor,
+    sat_cm: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Per-channel extraction from the streams of the channelizer kernel's
+    cm form: ``mag`` the time-major (T, M) magnitude (latch and noise
+    floor), ``mag_cm`` / ``dph_cm`` / ``sat_cm`` the channel-major (M, T)
+    streams, ``sat_cm`` a 0/1 mask."""
+    if noise_floor is None:
+        noise_floor = median(mag, dim=0)
+    return _extract_channelized_pallas_stats(
+        mag, None, None, cfg, noise_floor,
+        cm_streams=(mag_cm, dph_cm, sat_cm), ops=ops)
+
+
+def _extract_channelized_pallas_stats(
+    mag: torch.Tensor,
+    phase_deg: Optional[torch.Tensor],
+    sat: Optional[torch.Tensor],
+    cfg: PdwConfig,
+    noise_floor: torch.Tensor,
+    entry_active: Optional[torch.Tensor] = None,
+    own_len: Optional[int] = None,
+    cm_streams=None,
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Channelized extraction from a time-major magnitude: the streamed
+    block's tail (the function keeps the name of its JAX counterpart).
+
+    ``mag`` is (T, M); ``cm_streams`` are the channel-major ``(mag_cm,
+    dph_cm, sat_cm)`` that the channelizer kernel's cm form wrote beside it,
+    ``sat_cm`` a 0/1 mask.  The latch runs on the time-major magnitude and
+    leaves the edge counts stacked channel-major, one rank search finds the
+    edges, and the statistics kernel reads the saturation mask itself.
+    ``entry_active`` / ``own_len`` give the block contract of
+    :func:`extract_pdws_block_core`; the defaults are the whole capture.
+
+    Tiers: tiny pulses (at most 2 samples) have closed forms and an empty
+    interior; short closed pulses (at most 128 samples) and the rest go
+    through the statistics kernel as two flat slot lists, every slot with
+    its channel, a slot outside the tier handed over as dead.  A dead slot
+    costs the kernel one index read, so the lists are not compacted.  A
+    configuration whose ``max_pulse_samples`` is no longer than the short
+    window has one tier and takes the slot grid as it is.
+
+    Without ``cm_streams`` the streams would come from ``phase_deg`` and
+    ``sat`` through the flip kernel, which is not ported yet.
+    """
+    if cm_streams is None:
+        raise NotImplementedError(
+            "not ported yet: extraction from time-major phase and saturation "
+            "(needs the flip kernel); pass cm_streams")
+    mag_cm, dph_cm, sat_cm = cm_streams
+    t_len, m = mag.shape
+    if t_len < 1:
+        raise ValueError("block shorter than one channelizer frame")
+    p_slots = cfg.max_pulses
+    w = cfg.max_pulse_samples
+    dev = mag.device
+    own = t_len if own_len is None else own_len
+
+    lead_thresh, trail_thresh = _thresholds(noise_floor, cfg)
+    entry_f = None if entry_active is None else \
+        entry_active.to(device=dev, dtype=torch.float32)
+    packed = ops.latch_tm(mag, lead_thresh, trail_thresh, entry_f)
+    # (2M, t_len): rows [0, M) lead counts, [M, 2M) trail: one search.  When
+    # the block enters active, its first trailing edge closes the previous
+    # block's pulse: skip it (latch events alternate).
+    ranks = torch.arange(1, p_slots + 1, dtype=torch.float32,
+                         device=dev).expand(2 * m, p_slots)
+    if entry_f is not None:
+        ranks = ranks + torch.cat([torch.zeros_like(entry_f),
+                                   entry_f])[:, None]
+    idx = find_ranks_cm(packed, ranks, t_len)
+    toa_idx, te_idx = idx[:m], idx[m:]
+    # leading edges in the owned region; ranks past n_own point into the
+    # halo and are masked out by `matched`
+    n_own = packed[:m, own - 1].to(torch.int32)
+
+    slot = torch.arange(p_slots, device=dev)
+    matched = (slot < n_own[:, None]) & (te_idx < t_len)
+    count = matched.sum(1).clamp(max=cfg.max_pulses).to(torch.int32)
+    valid = slot < count[:, None]
+
+    if w > _SHORT_WINDOW:
+        plen = te_idx - toa_idx + 1
+        valid_slot = toa_idx < t_len
+        closed = valid_slot & (te_idx < t_len)
+        is_tiny = closed & (plen <= 2)
+        is_short = closed & ~is_tiny & (plen <= _SHORT_WINDOW)
+        is_long = valid_slot & ~is_tiny & ~is_short
+
+        safe_toa = toa_idx.clamp(max=t_len - 1).to(torch.int64)
+        safe_te = te_idx.clamp(max=t_len - 1).to(torch.int64)
+        mag_a = torch.gather(mag_cm[:m], 1, safe_toa)
+        mag_b = torch.gather(mag_cm[:m], 1, safe_te)
+        tiny_mag = torch.where(plen >= 2, 0.5 * (mag_a + mag_b), mag_a)
+        nan = torch.full((), float("nan"), device=dev)
+        tiny_dph = torch.where(
+            plen >= 2, torch.gather(dph_cm[:m], 1, safe_toa), nan)
+
+        sentinel = torch.full((), t_len, dtype=torch.int32, device=dev)
+        chan = torch.arange(m, dtype=torch.int32,
+                            device=dev).repeat_interleave(p_slots)
+
+        def tier(sel, window):
+            outs = ops.pulse_stats_dense(
+                mag_cm, dph_cm, sat_cm,
+                torch.where(sel, toa_idx, sentinel).reshape(-1),
+                torch.where(sel, te_idx, sentinel).reshape(-1), chan, window,
+                t_len)
+            return [o.reshape(m, p_slots) for o in outs]
+
+        shorts, longs = tier(is_short, _SHORT_WINDOW), tier(is_long, w)
+        tiny = (tiny_mag, tiny_dph, torch.zeros_like(tiny_mag))
+        med_mag, med_dph, sat_any = (
+            torch.where(is_tiny, t, torch.where(is_short, s_, l_))
+            for t, s_, l_ in zip(tiny, shorts, longs))
+    else:
+        med_mag, med_dph, sat_any = ops.pulse_stats(
+            mag_cm, dph_cm, toa_idx.contiguous(), te_idx.contiguous(), w,
+            t_len, sat_cm)
+
+    snr = 10.0 * torch.log10(med_mag / noise_floor[:, None])
+    zero = mag.new_zeros(())
+    return PdwBatch(
+        toa_idx=torch.where(valid, toa_idx, -1),
+        te_idx=torch.where(valid, te_idx, -1),
+        pw_sec=torch.where(valid, (te_idx - toa_idx).to(torch.float32), zero),
+        mag=torch.where(valid, med_mag, zero),
+        snr_db=torch.where(valid, snr, zero),
+        freq_offset_hz=torch.where(valid, med_dph / 360.0, zero),
+        saturated=valid & (sat_any > 0.5),
+        valid=valid,
+        count=count,
+    )
+
+
 def finalize_pdws(
     batch: PdwBatch,
     fs: float,
@@ -342,7 +607,8 @@ def finalize_pdws(
     sample_start_time: float = 0.0,
     bin_offsets_hz: Optional[np.ndarray] = None,
 ) -> dict:
-    """Convert a (possibly channelized) PdwBatch to host float64 PDW arrays.
+    """Convert a (possibly channelized) PdwBatch, of tensors or of NumPy
+    arrays, to host float64 PDW arrays.
 
     Applies the MATLAB formulas exactly, in float64:
     ``toa = (i0+1)/fs + sampleStartTime``, ``pw = (jj-toa)/fs``,
@@ -354,7 +620,9 @@ def finalize_pdws(
     ``toa, freq, pw, mag, snr, sat, channel``.
     """
     def host(x, dtype):
-        return np.asarray(x.detach().cpu().numpy(), dtype)
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, dtype)
 
     toa_idx = host(batch.toa_idx, np.int64)
     te_idx = host(batch.te_idx, np.int64)

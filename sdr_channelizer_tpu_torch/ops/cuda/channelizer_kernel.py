@@ -1,14 +1,18 @@
-"""Kernel K1: packed capture -> channel-major detection streams.
+"""Kernel K1 and its cm mode: packed capture -> detection streams.
 
-The counterpart of ``pallas_channelize_streams_packed_cm2`` of the JAX
-package: sign-extend and dequantize the packed (I, Q) pairs, the polyphase
-branch FIR with zero initial state, the shift-folded DFT in full float32,
-then the three channel-major streams of the PDW front end.
+The counterparts of ``pallas_channelize_streams_packed_cm2`` and
+``pallas_channelize_streams_packed_cm`` of the JAX package: sign-extend and
+dequantize the packed (I, Q) pairs, the polyphase branch FIR over the
+``history`` frames of the previous block (zeros by default), the
+shift-folded DFT in full float32, then the channel-major streams of the PDW
+front end.  The cm2 form gives the saturation as a cumulative count; the cm
+form gives it as a 0/1 mask and adds the time-major magnitude that the
+streamed noise floor and the time-major latch read.
 
-``channelize_streams_packed_cm2`` launches the CUDA kernel
-(``csrc/channelizer.cu``) for a CUDA tensor, or raises; for a CPU tensor it
-takes ``channelize_streams_packed_cm2_plain``, the plain PyTorch version of
-the same function.
+``channelize_streams_packed_cm2`` / ``channelize_streams_packed_cm`` launch
+the CUDA kernel (``csrc/channelizer.cu``, one body for both) for a CUDA
+tensor, or raise; for a CPU tensor they take their ``_plain`` versions, the
+plain PyTorch form of the same functions.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from sdr_channelizer_tpu_torch.ops.cuda import _build
 
-launches = 0  # times the wrapper launched the CUDA kernel
+launches = 0     # times channelize_streams_packed_cm2 launched its kernel
+launches_cm = 0  # times channelize_streams_packed_cm launched its kernel
 
 _PACKED = {torch.int32: 4, torch.int16: 2}
 _TILE_FRAMES = (64, 32, 16, 8, 4)
@@ -39,6 +44,18 @@ def _check_args(xq: torch.Tensor, taps_rev) -> Tuple[int, int, int]:
         raise ValueError("xq must be a contiguous 1-D tensor of packed pairs")
     p, m = taps_rev.shape
     return p, m, xq.shape[0] // m
+
+
+def _check_history(history, xq: torch.Tensor, p: int, m: int):
+    """The (P-1, M) packed frames before the block, flat, or None."""
+    if history is None:
+        return None
+    if history.dtype != xq.dtype or history.device != xq.device:
+        raise TypeError("history must have the dtype and device of xq")
+    if history.numel() != (p - 1) * m:
+        raise ValueError(f"history must hold (P-1, M) = ({p - 1}, {m}) "
+                         f"packed frames, got {tuple(history.shape)}")
+    return history.reshape(-1).contiguous()
 
 
 def unpack_pairs(xq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,7 +98,8 @@ def atan2_cephes(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def channelize_planes_plain(xq: torch.Tensor, taps_rev, bit_width: int,
-                            shift: bool = True
+                            shift: bool = True,
+                            history: Optional[torch.Tensor] = None,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (T, M) real and imaginary planes of the channelizer output, from
     the packed capture, in plain PyTorch (matmul in full float32)."""
@@ -94,8 +112,12 @@ def channelize_planes_plain(xq: torch.Tensor, taps_rev, bit_width: int,
     scale = float(2.0 ** -(bit_width - 1))
     vi, vq = unpack_pairs(xq[: t_len * m])
     taps = torch.as_tensor(np.asarray(taps_rev, np.float32), device=xq.device)
-    ur = fir_branches((vi * scale).reshape(t_len, m), taps)
-    ui = fir_branches((vq * scale).reshape(t_len, m), taps)
+    hist = _check_history(history, xq, p, m)
+    hi = hq = None
+    if hist is not None:
+        hi, hq = ((h * scale).reshape(p - 1, m) for h in unpack_pairs(hist))
+    ur = fir_branches((vi * scale).reshape(t_len, m), taps, hi)
+    ui = fir_branches((vq * scale).reshape(t_len, m), taps, hq)
     w = dft_matrix(m, shifted=shift)
     wr = torch.as_tensor(np.ascontiguousarray(w.real), device=xq.device)
     wi = torch.as_tensor(np.ascontiguousarray(w.imag), device=xq.device)
@@ -107,15 +129,9 @@ def channelize_planes_plain(xq: torch.Tensor, taps_rev, bit_width: int,
     return yr, yi
 
 
-def channelize_streams_packed_cm2_plain(
-    xq: torch.Tensor,
-    taps_rev: np.ndarray,
-    bit_width: int = 12,
-    sat_level: float = 0.9999,
-    shift: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`channelize_streams_packed_cm2`."""
-    yr, yi = channelize_planes_plain(xq, taps_rev, bit_width, shift)
+def _streams_plain(xq, taps_rev, bit_width, sat_level, shift, history):
+    """Time-major (T, M) ``(mag, dph, sat)`` shared by both plain forms."""
+    yr, yi = channelize_planes_plain(xq, taps_rev, bit_width, shift, history)
     t_len, m = yr.shape
     mag = torch.sqrt(yr * yr + yi * yi)
     ph = atan2_cephes(yi, yr) * float(np.float32(180.0 / np.pi))
@@ -124,8 +140,36 @@ def channelize_streams_packed_cm2_plain(
     d = torch.where(d < -180.0, d + 360.0, d)
     d = torch.where(d > 180.0, d - 360.0, d)  # strict: exactly +-180 stays
     dph = torch.cat([d, d.new_zeros((min(t_len, 1), m))], dim=0)
+    return mag, dph, sat
+
+
+def channelize_streams_packed_cm2_plain(
+    xq: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 12,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    history: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`channelize_streams_packed_cm2`."""
+    mag, dph, sat = _streams_plain(xq, taps_rev, bit_width, sat_level, shift,
+                                   history)
     return (mag.T.contiguous(), dph.T.contiguous(),
             torch.cumsum(sat, dim=0).T.contiguous())
+
+
+def channelize_streams_packed_cm_plain(
+    xq: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 12,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    history: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`channelize_streams_packed_cm`."""
+    mag, dph, sat = _streams_plain(xq, taps_rev, bit_width, sat_level, shift,
+                                   history)
+    return (mag, mag.T.contiguous(), dph.T.contiguous(), sat.T.contiguous())
 
 
 def _tile_frames(lib, m: int, p: int) -> int:
@@ -166,12 +210,31 @@ def _library():
     if not getattr(lib, "_sdr_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdr_channelize_cm2.argtypes = [
-            vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, vp]
+            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf,
+            cf, vp]
         lib.sdr_channelize_cm2.restype = ci
+        lib.sdr_channelize_cm.argtypes = [
+            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf,
+            cf, vp]
+        lib.sdr_channelize_cm.restype = ci
         lib.sdr_channelize_cm2_smem.argtypes = [ci, ci, ci]
         lib.sdr_channelize_cm2_smem.restype = ctypes.c_longlong
         lib._sdr_typed = True
     return lib
+
+
+def _launch_plan(xq, taps_rev, shift, tile_frames):
+    """What both kernel forms share before the launch: the library, the
+    weights on the device and the tile length."""
+    p, m, t_len = _check_args(xq, taps_rev)
+    mp = (m + 3) // 4 * 4
+    weights = _device_weights(taps_rev, shift, xq.device, mp)
+    lib = _library()
+    ft = tile_frames or _tile_frames(lib, m, p)
+    if ft % 4 or lib.sdr_channelize_cm2_smem(m, p, ft) > _SMEM_MAX:
+        raise ValueError(f"tile_frames={ft} must be a multiple of 4 that fits "
+                         f"shared memory")
+    return lib, weights, mp, ft
 
 
 def channelize_streams_packed_cm2(
@@ -181,17 +244,20 @@ def channelize_streams_packed_cm2(
     sat_level: float = 0.9999,
     shift: bool = True,
     tile_frames: Optional[int] = None,
+    history: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed ingest -> ``(mag_cm, dph_cm, satcs_cm)``, each (M, t_len) f32.
 
     ``xq`` packs one (I, Q) pair per element: int32 holding an int16 pair
     (low half I) or int16 holding an int8 pair (low byte I); ``t_len =
     len(xq) // M`` frames are used.  ``taps_rev`` is the (P, M) frame-aligned
-    polyphase matrix.  ``mag_cm = |y|``; ``dph_cm[:, t]`` is the phase step
-    from frame ``t`` to ``t + 1`` in degrees, wrapped once into [-180, 180]
-    with strict inequalities, and zero at column ``t_len - 1``;
-    ``satcs_cm`` is the inclusive count along time of samples with
-    ``|Re| >= sat_level`` or ``|Im| >= sat_level``.
+    polyphase matrix.  ``history`` is the (P-1, M) packed tail of the block
+    before this one, in the dtype of ``xq``: the FIR state the block enters
+    with (default zeros, the initial state of a capture).  ``mag_cm = |y|``;
+    ``dph_cm[:, t]`` is the phase step from frame ``t`` to ``t + 1`` in
+    degrees, wrapped once into [-180, 180] with strict inequalities, and
+    zero at column ``t_len - 1``; ``satcs_cm`` is the inclusive count along
+    time of samples with ``|Re| >= sat_level`` or ``|Im| >= sat_level``.
 
     The outputs have exactly M rows and ``t_len`` columns: no pad rows and
     no pad columns (the JAX kernel's have M rounded up to 8 and the time
@@ -200,29 +266,26 @@ def channelize_streams_packed_cm2(
     """
     global launches
     p, m, t_len = _check_args(xq, taps_rev)
+    hist = _check_history(history, xq, p, m)
     if not xq.is_cuda:
         return channelize_streams_packed_cm2_plain(
-            xq, taps_rev, bit_width, sat_level, shift)
+            xq, taps_rev, bit_width, sat_level, shift, hist)
     if t_len >= 1 << 24:
         raise ValueError("satcs_cm counts are float32: t_len must be < 2^24")
     dev = xq.device
-    mp = (m + 3) // 4 * 4
-    taps_d, wr_d, wi_d = _device_weights(taps_rev, shift, dev, mp)
     mag = torch.empty((m, t_len), dtype=torch.float32, device=dev)
     dph = torch.empty_like(mag)
     satcs = torch.empty_like(mag)
     if t_len == 0:
         return mag, dph, satcs
-    lib = _library()
-    ft = tile_frames or _tile_frames(lib, m, p)
-    if ft % 4 or lib.sdr_channelize_cm2_smem(m, p, ft) > _SMEM_MAX:
-        raise ValueError(f"tile_frames={ft} must be a multiple of 4 that fits "
-                         f"shared memory")
+    lib, (taps_d, wr_d, wi_d), mp, ft = _launch_plan(xq, taps_rev, shift,
+                                                     tile_frames)
     n_tiles = (t_len + ft - 1) // ft
     tile_tot = torch.empty((m, n_tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         code = lib.sdr_channelize_cm2(
-            xq.data_ptr(), _PACKED[xq.dtype], taps_d.data_ptr(),
+            xq.data_ptr(), _PACKED[xq.dtype],
+            None if hist is None else hist.data_ptr(), taps_d.data_ptr(),
             wr_d.data_ptr(), wi_d.data_ptr(), mag.data_ptr(), dph.data_ptr(),
             satcs.data_ptr(), tile_tot.data_ptr(), m, mp, p, t_len, ft,
             float(2.0 ** -(bit_width - 1)), float(sat_level),
@@ -230,3 +293,49 @@ def channelize_streams_packed_cm2(
     _build.check_launch(code, "sdr_channelize_cm2")
     launches += 1
     return mag, dph, satcs
+
+
+def channelize_streams_packed_cm(
+    xq: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 12,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    tile_frames: Optional[int] = None,
+    history: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Packed ingest -> ``(mag, mag_cm, dph_cm, sat_cm)``.
+
+    The streamed block's front end.  ``mag`` is the time-major (t_len, M)
+    magnitude; ``mag_cm`` and ``dph_cm`` are the channel-major (M, t_len)
+    streams of :func:`channelize_streams_packed_cm2`, the same bits (one
+    kernel body computes both forms); ``sat_cm`` is the (M, t_len) 0/1 mask
+    of samples with ``|Re| >= sat_level`` or ``|Im| >= sat_level``, not a
+    count.  Arguments as there.
+    """
+    global launches_cm
+    p, m, t_len = _check_args(xq, taps_rev)
+    hist = _check_history(history, xq, p, m)
+    if not xq.is_cuda:
+        return channelize_streams_packed_cm_plain(
+            xq, taps_rev, bit_width, sat_level, shift, hist)
+    dev = xq.device
+    mag_tm = torch.empty((t_len, m), dtype=torch.float32, device=dev)
+    mag = torch.empty((m, t_len), dtype=torch.float32, device=dev)
+    dph = torch.empty_like(mag)
+    sat = torch.empty_like(mag)
+    if t_len == 0:
+        return mag_tm, mag, dph, sat
+    lib, (taps_d, wr_d, wi_d), mp, ft = _launch_plan(xq, taps_rev, shift,
+                                                     tile_frames)
+    with torch.cuda.device(dev):
+        code = lib.sdr_channelize_cm(
+            xq.data_ptr(), _PACKED[xq.dtype],
+            None if hist is None else hist.data_ptr(), taps_d.data_ptr(),
+            wr_d.data_ptr(), wi_d.data_ptr(), mag_tm.data_ptr(),
+            mag.data_ptr(), dph.data_ptr(), sat.data_ptr(), m, mp, p, t_len,
+            ft, float(2.0 ** -(bit_width - 1)), float(sat_level),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(code, "sdr_channelize_cm")
+    launches_cm += 1
+    return mag_tm, mag, dph, sat

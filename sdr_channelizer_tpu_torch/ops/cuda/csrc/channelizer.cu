@@ -1,15 +1,21 @@
 // Fused packed-ingest channelizer -> channel-major detection streams.
 //
-// Replaces the TPU kernel `_streams_kernel` in cm2 mode
+// Replaces the TPU kernel `_streams_kernel` in its cm2 and cm modes
 // (sdr_channelizer_tpu/ops/pallas/channelizer_kernel.py, reached through
-// `pallas_channelize_streams_packed_cm2`).
+// `pallas_channelize_streams_packed_cm2` and
+// `pallas_channelize_streams_packed_cm`).
 //
 // What it computes, per frame t of M packed (I, Q) samples: sign-extend and
-// dequantize by `scale`; the P-tap polyphase branch FIR with P-1 zero
-// history frames; the shift-folded M-point DFT as four real float32
-// products; then, channel-major (M, T): |y|, the wrapped phase difference
-// to the next frame in degrees (zero from column T-1 on) and the inclusive
-// per-channel cumulative count of saturated samples.
+// dequantize by `scale`; the P-tap polyphase branch FIR over the P-1 frames
+// before the block (`hist`, the packed tail of the previous block, or zeros);
+// the shift-folded M-point DFT as four real float32 products; then,
+// channel-major (M, T): |y|, the wrapped phase difference to the next frame
+// in degrees (zero from column T-1 on) and the saturation stream.  In cm2
+// mode that stream is the inclusive per-channel cumulative count of
+// saturated samples.  In cm mode it is the 0/1 mask itself, and |y| is also
+// written time-major (T, M).  Both modes are one kernel body: the FIR, the
+// DFT and their order of operations are shared, so |y| and the phase of a
+// frame are the same bits whichever mode computed them.
 //
 // What bounds it on an H100: the DFT.  Per frame it is 4*M*M fused
 // multiply-adds against 4*M bytes read and 12*M bytes written, so at M = 64
@@ -37,7 +43,9 @@
 // turns the totals into exclusive offsets, and `add_offsets` adds them,
 // touching only tiles whose offset is not zero (a capture that never clips
 // costs nothing there).  The ragged last tile and any M are masked; nothing
-// is padded to a lane width.
+// is padded to a lane width.  The cm mode needs no count, so none of the
+// two small kernels runs there; its time-major |y| leaves shared memory with
+// the channel index fastest, which is again coalesced.
 
 #include "common.cuh"
 
@@ -105,18 +113,23 @@ __host__ __device__ inline Smem smem_layout(int M, int P, int FT) {
   return s;
 }
 
-template <typename PackedT>
+// kCm = false: cm2 mode (sat_out = cumulative count inside the tile,
+// tile_tot written, mag_tm unused).  kCm = true: cm mode (sat_out = 0/1
+// mask, mag_tm written, tile_tot unused).
+template <typename PackedT, bool kCm>
 __global__ void __launch_bounds__(kThreads)
-channelize_cm2_kernel(const PackedT* __restrict__ xq,
-                      const float* __restrict__ taps,  // (P, M)
-                      const float* __restrict__ wr,    // (M, MP)
-                      const float* __restrict__ wi,    // (M, MP)
-                      float* __restrict__ mag_cm,      // (M, T)
-                      float* __restrict__ dph_cm,
-                      float* __restrict__ satcs_cm,
-                      int* __restrict__ tile_tot,      // (M, n_tiles)
-                      int M, int MP, int P, int T, int FT, float scale,
-                      float sat_level) {
+channelize_kernel(const PackedT* __restrict__ xq,
+                  const PackedT* __restrict__ hist,  // (P-1, M) or null
+                  const float* __restrict__ taps,    // (P, M)
+                  const float* __restrict__ wr,      // (M, MP)
+                  const float* __restrict__ wi,      // (M, MP)
+                  float* __restrict__ mag_tm,        // (T, M)
+                  float* __restrict__ mag_cm,        // (M, T)
+                  float* __restrict__ dph_cm,
+                  float* __restrict__ sat_out,
+                  int* __restrict__ tile_tot,        // (M, n_tiles)
+                  int M, int MP, int P, int T, int FT, float scale,
+                  float sat_level) {
   extern __shared__ __align__(16) float smem[];
   const Smem lay = smem_layout(M, P, FT);
   const int tid = threadIdx.x;
@@ -134,15 +147,21 @@ channelize_cm2_kernel(const PackedT* __restrict__ xq,
   float* mag_s = smem;
   float* ph_s = smem + M * PS;
 
-  // 1. frames t0-(P-1) .. t0+FT, dequantized
+  // 1. frames t0-(P-1) .. t0+FT, dequantized; the frames before the block
+  //    come from `hist` (only the first tile reaches them)
   {
     const long long base = (long long)(t0 - (P - 1)) * M;
     const long long n_all = (long long)T * M;
+    const long long n_hist = (long long)(P - 1) * M;
     const int n_x = (FT + P) * M;
     for (int i = tid; i < n_x; i += kThreads) {
       long long g = base + i;
       float vi = 0.0f, vq = 0.0f;
-      if (g >= 0 && g < n_all) unpack(xq[g], vi, vq);
+      if (g >= 0 && g < n_all) {
+        unpack(xq[g], vi, vq);
+      } else if (g < 0 && hist != nullptr) {
+        unpack(hist[g + n_hist], vi, vq);
+      }
       Xr[i] = vi * scale;
       Xi[i] = vq * scale;
     }
@@ -235,7 +254,16 @@ channelize_cm2_kernel(const PackedT* __restrict__ xq,
   }
   __syncthreads();
 
-  // 4. channel-major write, a warp per channel, time across the lanes
+  // 4a. cm mode: |y| time-major, the channel index fastest
+  if (kCm) {
+    const int n_t = min(FT, T - t0);
+    for (int i = tid; i < n_t * M; i += kThreads) {
+      const int t = i / M, k = i - t * M;
+      mag_tm[(size_t)(t0 + t) * M + k] = mag_s[k * PS + t];
+    }
+  }
+
+  // 4b. channel-major write, a warp per channel, time across the lanes
   for (int k = warp; k < M; k += kWarps) {
     int carry = 0;
     const size_t row = (size_t)k * T;
@@ -244,7 +272,7 @@ channelize_cm2_kernel(const PackedT* __restrict__ xq,
       const int ta = t0 + t;
       const bool in = t < FT && ta < T;
       const int s = in ? sat_s[k * FT + t] : 0;
-      const int incl = sdr::warp_inclusive_sum(s, lane);
+      const int incl = kCm ? s : sdr::warp_inclusive_sum(s, lane);
       if (in) {
         mag_cm[row + ta] = mag_s[k * PS + t];
         float d = ph_s[k * PS + t + 1] - ph_s[k * PS + t];
@@ -252,11 +280,11 @@ channelize_cm2_kernel(const PackedT* __restrict__ xq,
         if (d > 180.0f) d -= 360.0f;  // strict: exactly +-180 stays
         if (ta >= T - 1) d = 0.0f;
         dph_cm[row + ta] = d;
-        satcs_cm[row + ta] = (float)(carry + incl);
+        sat_out[row + ta] = (float)(carry + incl);
       }
-      carry += __shfl_sync(sdr::kFullMask, incl, 31);
+      if (!kCm) carry += __shfl_sync(sdr::kFullMask, incl, 31);
     }
-    if (lane == 0) tile_tot[(size_t)k * gridDim.x + tile_idx] = carry;
+    if (!kCm && lane == 0) tile_tot[(size_t)k * gridDim.x + tile_idx] = carry;
   }
 }
 
@@ -300,28 +328,29 @@ __global__ void add_offsets_kernel(float* __restrict__ satcs_cm,
   }
 }
 
-template <typename PackedT>
-int launch(const void* xq, const float* taps, const float* wr, const float* wi,
-           float* mag, float* dph, float* satcs, int* tile_tot, int M, int MP,
-           int P, int T, int FT, float scale, float sat_level,
-           cudaStream_t stream) {
+template <typename PackedT, bool kCm>
+int launch(const void* xq, const void* hist, const float* taps,
+           const float* wr, const float* wi, float* mag_tm, float* mag,
+           float* dph, float* sat, int* tile_tot, int M, int MP, int P, int T,
+           int FT, float scale, float sat_level, cudaStream_t stream) {
   const Smem lay = smem_layout(M, P, FT);
   const size_t bytes = (size_t)lay.n_float * sizeof(float) + (size_t)M * FT;
   cudaError_t err = cudaFuncSetAttribute(
-      channelize_cm2_kernel<PackedT>,
+      channelize_kernel<PackedT, kCm>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (T + FT - 1) / FT;
-  channelize_cm2_kernel<PackedT><<<n_tiles, kThreads, bytes, stream>>>(
-      static_cast<const PackedT*>(xq), taps, wr, wi, mag, dph, satcs, tile_tot,
-      M, MP, P, T, FT, scale, sat_level);
+  channelize_kernel<PackedT, kCm><<<n_tiles, kThreads, bytes, stream>>>(
+      static_cast<const PackedT*>(xq), static_cast<const PackedT*>(hist), taps,
+      wr, wi, mag_tm, mag, dph, sat, tile_tot, M, MP, P, T, FT, scale,
+      sat_level);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || kCm) return (int)err;
   scan_tiles_kernel<<<M, kScanThreads, 0, stream>>>(tile_tot, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kAddCols - 1) / kAddCols, M);
-  add_offsets_kernel<<<grid, 256, 0, stream>>>(satcs, tile_tot, M, T, FT);
+  add_offsets_kernel<<<grid, 256, 0, stream>>>(sat, tile_tot, M, T, FT);
   return (int)cudaGetLastError();
 }
 
@@ -335,24 +364,47 @@ extern "C" long long sdr_channelize_cm2_smem(int M, int P, int FT) {
 }
 
 // packed_bytes: 4 = int32 holding an int16 (I, Q) pair, 2 = int16 holding an
-// int8 pair.  MP = M rounded up to 4 (row stride of wr, wi); FT a multiple
+// int8 pair.  hist: (P-1, M) packed frames that precede the block, or null
+// for zeros.  MP = M rounded up to 4 (row stride of wr, wi); FT a multiple
 // of 4.  Returns the cudaError_t of the first failing call, 0 if none.
 extern "C" int sdr_channelize_cm2(const void* xq, int packed_bytes,
-                                  const void* taps, const void* wr,
-                                  const void* wi, void* mag, void* dph,
-                                  void* satcs, void* tile_tot, int M, int MP,
-                                  int P, int T, int FT, float scale,
-                                  float sat_level, void* stream) {
+                                  const void* hist, const void* taps,
+                                  const void* wr, const void* wi, void* mag,
+                                  void* dph, void* satcs, void* tile_tot,
+                                  int M, int MP, int P, int T, int FT,
+                                  float scale, float sat_level, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (packed_bytes == 4)
-    return launch<int32_t>(xq, (const float*)taps, (const float*)wr,
-                           (const float*)wi, (float*)mag, (float*)dph,
-                           (float*)satcs, (int*)tile_tot, M, MP, P, T, FT,
-                           scale, sat_level, s);
+    return launch<int32_t, false>(
+        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
+        nullptr, (float*)mag, (float*)dph, (float*)satcs, (int*)tile_tot, M,
+        MP, P, T, FT, scale, sat_level, s);
   if (packed_bytes == 2)
-    return launch<int16_t>(xq, (const float*)taps, (const float*)wr,
-                           (const float*)wi, (float*)mag, (float*)dph,
-                           (float*)satcs, (int*)tile_tot, M, MP, P, T, FT,
-                           scale, sat_level, s);
+    return launch<int16_t, false>(
+        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
+        nullptr, (float*)mag, (float*)dph, (float*)satcs, (int*)tile_tot, M,
+        MP, P, T, FT, scale, sat_level, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The cm mode: mag_tm (T, M) time-major |y|; mag, dph, sat (M, T), sat the
+// 0/1 saturation mask.  Other arguments as sdr_channelize_cm2.
+extern "C" int sdr_channelize_cm(const void* xq, int packed_bytes,
+                                 const void* hist, const void* taps,
+                                 const void* wr, const void* wi, void* mag_tm,
+                                 void* mag, void* dph, void* sat, int M,
+                                 int MP, int P, int T, int FT, float scale,
+                                 float sat_level, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (packed_bytes == 4)
+    return launch<int32_t, true>(
+        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
+        (float*)mag_tm, (float*)mag, (float*)dph, (float*)sat, nullptr, M, MP,
+        P, T, FT, scale, sat_level, s);
+  if (packed_bytes == 2)
+    return launch<int16_t, true>(
+        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
+        (float*)mag_tm, (float*)mag, (float*)dph, (float*)sat, nullptr, M, MP,
+        P, T, FT, scale, sat_level, s);
   return (int)cudaErrorInvalidValue;
 }

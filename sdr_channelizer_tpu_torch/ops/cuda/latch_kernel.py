@@ -1,8 +1,11 @@
-"""Kernel K3: channel-major hysteresis latch and the edge cumulative counts.
+"""Kernel K3 and its time-major form: the hysteresis latch and the edge
+cumulative counts.
 
-The counterpart of ``pallas_latch_cumsums_cm`` of the JAX package.
-``latch_cumsums_cm`` launches the CUDA scan (``csrc/latch.cu``) for a CUDA
-tensor, or raises; for a CPU tensor it takes ``latch_cumsums_cm_plain``.
+The counterparts of ``pallas_latch_cumsums_cm`` (channel-major magnitude in)
+and ``pallas_latch_cumsums`` (time-major magnitude in) of the JAX package.
+``latch_cumsums_cm`` and ``latch_cumsums`` launch the CUDA scans
+(``csrc/latch.cu``) for a CUDA tensor, or raise; for a CPU tensor they take
+``latch_cumsums_cm_plain`` and ``latch_cumsums_plain``.
 
 The latch follows the kernel's three-state rule: a sample's transfer is
 ``(mag >= lead) - (mag <= trail)`` (+1 set, -1 reset, 0 hold), so a sample
@@ -18,7 +21,8 @@ import torch
 
 from sdr_channelizer_tpu_torch.ops.cuda import _build
 
-launches = 0  # times the wrapper launched the CUDA kernel
+launches = 0     # times latch_cumsums_cm launched its kernel
+launches_tm = 0  # times latch_cumsums launched its kernel
 
 
 def _check_args(mag_cm, lead_thresh, trail_thresh, m_real, entry_active):
@@ -84,6 +88,8 @@ def _library():
         lib.sdr_latch_cumsums_cm.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.sdr_latch_cumsums_cm.restype = ci
+        lib.sdr_latch_cumsums_tm.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.sdr_latch_cumsums_tm.restype = ci
         lib._sdr_typed = True
     return lib
 
@@ -134,4 +140,75 @@ def latch_cumsums_cm(
             torch.cuda.current_stream(mag_cm.device).cuda_stream)
     _build.check_launch(code, "sdr_latch_cumsums_cm")
     launches += 1
+    return out
+
+
+def _check_args_tm(mag, lead_thresh, trail_thresh, entry_active):
+    if mag.dtype != torch.float32 or mag.ndim != 2:
+        raise TypeError("mag must be a 2-D float32 tensor (T, M)")
+    m = mag.shape[1]
+    if lead_thresh.shape != (m,) or trail_thresh.shape != (m,):
+        raise ValueError("thresholds must have shape (M,)")
+    if entry_active is not None and entry_active.shape != (m,):
+        raise ValueError("entry_active must have shape (M,)")
+
+
+def latch_cumsums_plain(
+    mag: torch.Tensor,
+    lead_thresh: torch.Tensor,
+    trail_thresh: torch.Tensor,
+    entry_active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`latch_cumsums`: the channel-major
+    plain version on the flipped magnitude."""
+    _check_args_tm(mag, lead_thresh, trail_thresh, entry_active)
+    return latch_cumsums_cm_plain(mag.T.contiguous(), lead_thresh,
+                                  trail_thresh, None, entry_active)
+
+
+def latch_cumsums(
+    mag: torch.Tensor,
+    lead_thresh: torch.Tensor,
+    trail_thresh: torch.Tensor,
+    entry_active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Edge cumulative counts of the per-channel latch over the time-major
+    magnitude ``mag`` (T, M).
+
+    ``lead_thresh`` / ``trail_thresh``: (M,) absolute thresholds;
+    ``entry_active``: (M,) state in which each latch enters (default
+    inactive).  Returns one (2M, T) float32 tensor in the layout of
+    :func:`latch_cumsums_cm`: rows [0, M) the inclusive count of leading
+    edges per channel, rows [M, 2M) that of trailing edges, so one rank
+    search finds every edge.  There are no pad columns: a pulse still open
+    at frame T - 1 gets no trailing edge, and the rank search answers it with
+    its sentinel T.
+    """
+    global launches_tm
+    _check_args_tm(mag, lead_thresh, trail_thresh, entry_active)
+    if not mag.is_cuda:
+        return latch_cumsums_plain(mag, lead_thresh, trail_thresh,
+                                   entry_active)
+    if not mag.is_contiguous():
+        raise ValueError("mag must be contiguous")
+    t_len, m = mag.shape
+    if t_len >= 1 << 24:
+        raise ValueError("edge counts are float32: T must be < 2^24")
+    out = torch.empty((2 * m, t_len), dtype=torch.float32, device=mag.device)
+    if m == 0 or t_len == 0:
+        return out
+
+    def on_device(v):
+        return v.to(device=mag.device, dtype=torch.float32).contiguous()
+
+    lead, trail = on_device(lead_thresh), on_device(trail_thresh)
+    entry = None if entry_active is None else on_device(entry_active)
+    lib = _library()
+    with torch.cuda.device(mag.device):
+        code = lib.sdr_latch_cumsums_tm(
+            mag.data_ptr(), lead.data_ptr(), trail.data_ptr(),
+            None if entry is None else entry.data_ptr(), out.data_ptr(), m,
+            t_len, torch.cuda.current_stream(mag.device).cuda_stream)
+    _build.check_launch(code, "sdr_latch_cumsums_tm")
+    launches_tm += 1
     return out

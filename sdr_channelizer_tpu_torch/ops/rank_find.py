@@ -20,3 +20,11 @@ def find_ranks_cm(cum_cm: torch.Tensor, ranks: torch.Tensor, t_len: int) -> torc
     """
     pos = torch.searchsorted(cum_cm.contiguous(), ranks.contiguous(), right=False)
     return torch.clamp(pos, max=t_len).to(torch.int32)
+
+
+def take_at_cm(vals_cm: torch.Tensor, chan: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``vals_cm[chan, idx]`` per query: (M, T) values, (P,) channel and
+    in-range sample indices -> (P,).  The JAX package reads one contiguous
+    block per query and picks a lane, again because of its gathers; the
+    function is one indexed read."""
+    return vals_cm[chan.to(torch.int64), idx.to(torch.int64)]

@@ -1,0 +1,4 @@
+"""Utilities: the structured metrics counters shared by the CLI and the
+streamed path."""
+
+from sdr_channelizer_tpu_torch.utils.metrics import Counters  # noqa: F401

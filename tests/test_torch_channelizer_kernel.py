@@ -1,5 +1,5 @@
-"""The port's channelizer (kernel K1's plain version and the FFT oracle)
-against the JAX package on the same inputs."""
+"""The port's channelizer (the plain versions of kernel K1 and of its cm
+form, and the FFT oracle) against the JAX package on the same inputs."""
 
 import numpy as np
 import pytest
@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from sdr_channelizer_tpu.dsp import channelizer as jchan
 from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
+    pallas_channelize_streams_packed_cm,
     pallas_channelize_streams_packed_cm2,
 )
 from sdr_channelizer_tpu_torch.dsp import channelizer as tchan
@@ -139,3 +140,130 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         ck.channelize_streams_packed_cm2(
             torch.zeros((8, 8), dtype=torch.int32), taps)
+
+
+# ------------------------------------------------- the cm form and history
+
+def _split(bw):
+    """The capture's packed pairs, cut at a frame: (whole, cut, history of
+    the second part = the last P-1 frames of the first)."""
+    xq = packed(pulse_capture(bw))
+    p = tchan.Channelizer.create(M).taps_per_band
+    cut = 400
+    return xq, cut, xq[(cut - (p - 1)) * M: cut * M]
+
+
+@pytest.fixture(scope="module",
+                params=[(12, False), (12, True), (8, False), (8, True)],
+                ids=["int16", "int16-history", "int8", "int8-history"])
+def cm_streams(request):
+    """(JAX cm streams cut to the real rows and columns, the port's): the
+    whole capture, or its second part entered with the first part's tail."""
+    bw, with_history = request.param
+    xq, cut, hist = _split(bw)
+    taps = jchan.Channelizer.create(M).taps_rev
+    if with_history:
+        xq = xq[cut * M:]
+    else:
+        hist = None
+    ref = pallas_channelize_streams_packed_cm(
+        jnp.asarray(xq), taps, bit_width=bw, block_frames=256, interpret=True,
+        history=None if hist is None else jnp.asarray(hist))
+    t_len = len(xq) // M
+    ref = [np.asarray(r) for r in ref]
+    got = ck.channelize_streams_packed_cm(
+        torch.from_numpy(xq), taps, bw,
+        history=None if hist is None else torch.from_numpy(hist))
+    return ([ref[0]] + [r[:M, :t_len] for r in ref[1:]],
+            [g.numpy() for g in got], t_len)
+
+
+def test_cm_shapes(cm_streams):
+    ref, got, t_len = cm_streams
+    assert got[0].shape == ref[0].shape == (t_len, M)
+    for g in got[1:]:
+        assert g.shape == (M, t_len) and g.dtype == np.float32
+    np.testing.assert_array_equal(got[0], got[1].T)
+
+
+@pytest.mark.parametrize("stream", [0, 1], ids=["mag", "mag_cm"])
+def test_cm_mag_matches_jax_kernel(cm_streams, stream):
+    ref, got, _ = cm_streams
+    np.testing.assert_allclose(got[stream], ref[stream], rtol=1e-5, atol=1e-5)
+
+
+def test_cm_dph_matches_jax_kernel(cm_streams):
+    ref, got, t_len = cm_streams
+    d = (got[2] - ref[2] + 180.0) % 360.0 - 180.0
+    loud = ref[1] > 1e-4
+    loud[:, :-1] &= loud[:, 1:]
+    assert np.abs(d[loud]).max() <= 0.05
+    assert not got[2][:, t_len - 1:].any()  # zero at column t_len - 1
+
+
+def test_cm_sat_mask_matches_jax_kernel_exactly(cm_streams):
+    ref, got, _ = cm_streams
+    assert set(np.unique(got[3])) <= {0.0, 1.0}
+    np.testing.assert_array_equal(got[3], ref[3])
+
+
+@pytest.mark.parametrize("bw", [12, 8], ids=["int16", "int8"])
+def test_cm_form_holds_the_bits_of_the_cm2_form(bw):
+    xq = torch.from_numpy(packed(pulse_capture(bw)))
+    taps = tchan.Channelizer.create(M).taps_rev
+    mag, mag_cm, dph_cm, sat_cm = ck.channelize_streams_packed_cm(xq, taps, bw)
+    k1_mag, k1_dph, k1_satcs = ck.channelize_streams_packed_cm2(xq, taps, bw)
+    assert torch.equal(mag_cm, k1_mag) and torch.equal(dph_cm, k1_dph)
+    assert sat_cm.any() and torch.equal(torch.cumsum(sat_cm, 1), k1_satcs)
+
+
+@pytest.mark.parametrize("form", ["cm", "cm2"])
+@pytest.mark.parametrize("bw", [12, 8], ids=["int16", "int8"])
+def test_two_blocks_with_history_equal_one_call(bw, form):
+    xq, cut, hist = _split(bw)
+    fn = getattr(ck, f"channelize_streams_packed_{form}")
+    taps = tchan.Channelizer.create(M).taps_rev
+    whole = fn(torch.from_numpy(xq), taps, bw)
+    first = fn(torch.from_numpy(xq[: cut * M]), taps, bw)
+    second = fn(torch.from_numpy(xq[cut * M:]), taps, bw,
+                history=torch.from_numpy(hist))
+    for i, (w, a, b) in enumerate(zip(whole, first, second)):
+        time_major = w.shape[1] == M
+        if form == "cm2" and i == 2:   # the count starts again at the cut
+            b = b + a[:, -1:]
+        if i == (2 if form == "cm" else 1):
+            # the first block ends at the cut, so its last phase step is
+            # zero by definition; the whole still knows the next frame
+            a = a.clone()
+            a[:, -1] = w[:, cut - 1]
+        joined = torch.cat([a, b], dim=0 if time_major else 1)
+        assert torch.equal(joined, w), (form, i)
+
+
+def test_short_history_is_padded_on_the_left():
+    """A block that starts fewer than P-1 frames into the capture: zeros
+    stand before the capture's first frame."""
+    bw = 12
+    xq = packed(pulse_capture(bw))
+    chan = tchan.Channelizer.create(M)
+    p = chan.taps_per_band
+    cut = p - 4
+    hist = np.concatenate([np.zeros((p - 1 - cut) * M, xq.dtype),
+                           xq[: cut * M]])
+    whole = ck.channelize_streams_packed_cm(torch.from_numpy(xq),
+                                            chan.taps_rev, bw)
+    part = ck.channelize_streams_packed_cm(
+        torch.from_numpy(xq[cut * M:]), chan.taps_rev, bw,
+        history=torch.from_numpy(hist))
+    assert torch.equal(part[0], whole[0][cut:])
+    assert torch.equal(part[1], whole[1][:, cut:])
+
+
+def test_history_is_checked():
+    taps = tchan.Channelizer.create(M).taps_rev
+    xq = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ck.channelize_streams_packed_cm(xq, taps, history=xq[:8])
+    with pytest.raises(TypeError):
+        ck.channelize_streams_packed_cm2(
+            xq, taps, history=torch.zeros(11 * M, dtype=torch.int16))

@@ -121,7 +121,7 @@ def test_cli_generate_then_pdw_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["pdw", "x.iq"],
-    ["pdw", "x.iq", "--channelized", "--stream"],
+    ["pdw", "x.iq", "--stream", "--shards", "2"],
     ["pdw", "x.iq", "--channelized", "--shards", "2"],
     ["pdw", "x.npz", "--channelized", "--device", "cpu"],
 ])

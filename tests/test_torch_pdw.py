@@ -1,5 +1,6 @@
 """The port's PDW stage against the JAX package: rank search, medians, the
-channel-major extraction fed the JAX streams, and the host finalize."""
+channel-major extraction fed the JAX streams, and the host finalize.  The
+block contract has its own file, ``test_torch_pdw_blocks.py``."""
 
 import dataclasses
 
@@ -21,22 +22,17 @@ from sdr_channelizer_tpu_torch.config import PdwConfig
 from sdr_channelizer_tpu_torch.dsp import pdw as tpdw
 from sdr_channelizer_tpu_torch.ops import medians as tmedians
 from sdr_channelizer_tpu_torch.ops import rank_find as trank
-from torch_port_fixtures import M, packed, pulse_capture
+from torch_port_fixtures import (
+    PDW_FIELDS as FIELDS,
+    M,
+    assert_pdw_field as _assert_field,
+    packed,
+    pulse_capture,
+)
 
 torch.set_num_threads(1)
 
-FIELDS = ("toa_idx", "te_idx", "pw_sec", "mag", "snr_db", "freq_offset_hz",
-          "saturated", "valid", "count")
 CFG_KW = dict(max_pulses=64, max_pulse_samples=256)
-
-
-def _assert_field(field, got, ref):
-    """Every field bit for bit, but ``snr_db``: ``torch.log10`` and XLA's
-    ``log10`` differ in the last place, so it is held at 1e-5 dB."""
-    if field == "snr_db":
-        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5, err_msg=field)
-    else:
-        np.testing.assert_array_equal(got, ref, err_msg=field)
 
 
 @pytest.fixture(scope="module")
@@ -219,3 +215,15 @@ def test_config_matches_jax_package():
     for name in ("channelized", "wideband", "event"):
         assert (dataclasses.asdict(getattr(PdwConfig, name)())
                 == dataclasses.asdict(getattr(JPdwConfig, name)()))
+
+
+def test_take_at_cm_matches_jax():
+    rng = np.random.default_rng(2)
+    vals = rng.standard_normal((6, 1024)).astype(np.float32)
+    chan = rng.integers(0, 6, 40).astype(np.int32)
+    idx = rng.integers(0, 1000, 40).astype(np.int32)
+    ref = jrank.take_at_cm(jnp.asarray(vals), jnp.asarray(chan),
+                           jnp.asarray(idx))
+    got = trank.take_at_cm(torch.from_numpy(vals), torch.from_numpy(chan),
+                           torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

@@ -8,6 +8,18 @@ from sdr_channelizer_tpu.signal.synth import PulseTrainSpec, pulse_train
 
 M = 8
 
+PDW_FIELDS = ("toa_idx", "te_idx", "pw_sec", "mag", "snr_db", "freq_offset_hz",
+              "saturated", "valid", "count")
+
+
+def assert_pdw_field(field, got, ref):
+    """Every ``PdwBatch`` field bit for bit, but ``snr_db``: ``torch.log10``
+    and XLA's ``log10`` differ in the last place, so it is held at 1e-5 dB."""
+    if field == "snr_db":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5, err_msg=field)
+    else:
+        np.testing.assert_array_equal(got, ref, err_msg=field)
+
 
 def pulse_capture(bit_width=12, m=M, clip=True, seed=7):
     """About 8000 samples of a pulsed tone in noise, as an (N, 2) integer
