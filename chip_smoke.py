@@ -11,8 +11,12 @@ then the streamed path (four contiguous ``.iq`` files of 16,777,216 samples
 each -> blocks of 65536 frames through the channelizer's cm form, the
 time-major latch and the statistics with the saturation mask, with
 checkpoint and resume) and holds it against single-shot extraction of the
-same samples, and runs the CLI.  One JSON line per phase; any failure exits
-non-zero.  ``--profile`` adds phases that print the device time of a step by
+same samples; then the wideband path (``WidebandPdwPipeline`` on 16,000,000
+complex samples through the time-major latch, the flip kernel and the
+statistics at one channel, and 33,554,432 samples block by block against the
+oracle extractor), the single-shot routes ``"flat"`` and ``"cm"`` against
+``"cm2"``, float payloads and the complex-free step; and runs the CLI.  One
+JSON line per phase; any failure exits non-zero.  ``--profile`` adds phases that print the device time of a step by
 kernel name and where a streamed block's time goes.  There is no CPU path:
 without a CUDA device the script exits at once with code 2 and prints no
 result.
@@ -39,6 +43,9 @@ FRAMES_MAIN = 262144
 BLOCK_FRAMES = 65536          # the streamed block (the CLI's default)
 HALO_FRAMES = 1024            # its look-ahead: max_pulse_samples
 STREAM_FILES = 4              # files of M_MAIN * FRAMES_MAIN samples each
+WIDE_SAMPLES = 16_000_000     # the wideband capture: 0.286 s at 56 Msps
+WIDE_LONG_SAMPLES = 1 << 25   # past 2^24: the blocked wideband route
+WIDE_FS = 56e6
 BIT_WIDTH = 12
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -157,6 +164,59 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def kernel_row(name, source, replaces, err, exact, ms, plain_ms, library_ms,
+               n_bytes, n_flop, **extra) -> dict:
+    """One entry of the ``kernels`` line; the bound from the bytes the
+    function must move and the operations it does on these inputs."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_flop = n_flop / FP32_FLOP_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda",
+        "source": f"sdr_channelizer_tpu_torch/ops/cuda/csrc/{source}",
+        "replaces": f"sdr_channelizer_tpu/ops/pallas/{replaces}",
+        "launches": None, "max_abs_err": err, "exact": exact,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_flop),
+        "bound_by": "bytes" if t_bytes >= t_flop else "operations",
+        "library_ms": library_ms, **extra}
+
+
+def n_bytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare_flat(xq, taps, bit_width, sat_level, got, where: str,
+                 history=None) -> dict:
+    """B5 against its plain version: magnitude at MAG_TOL, the phase at
+    DPH_TOL_DEG (modulo 360) where |y| > 0.01, the mask equal but for samples
+    whose |Re| or |Im| lies within SAT_HOVER of the level."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
+
+    mag, ph, sat = got
+    pm, pp, ps = ck.channelize_streams_packed_plain(
+        xq, taps, bit_width, sat_level, history=history)
+    check(mag.shape == pm.shape == ph.shape == sat.shape,
+          f"{where}: stream shapes {tuple(mag.shape)} vs {tuple(pm.shape)}")
+    check(bool(torch.isfinite(mag).all() and torch.isfinite(ph).all()),
+          f"{where}: non-finite stream values")
+    check(torch.allclose(mag, pm, rtol=MAG_TOL, atol=MAG_TOL),
+          f"{where}: mag off by {max_abs(mag, pm):.3g}")
+    dd = ((ph - pp + 180.0) % 360.0 - 180.0).abs()
+    ph_err = float((dd * (pm > 1e-2)).max())
+    check(ph_err <= DPH_TOL_DEG,
+          f"{where}: phase off by {ph_err:.3g} deg where |y| > 0.01")
+    check(bool(((sat == 0) | (sat == 1)).all()), f"{where}: sat is no mask")
+    yr, yi = ck.channelize_planes_plain(xq, taps, bit_width, history=history)
+    hover = (((yr.abs() - sat_level).abs() <= SAT_HOVER)
+             | ((yi.abs() - sat_level).abs() <= SAT_HOVER))
+    check(bool(((sat == ps) | hover).all()),
+          f"{where}: mask differs beyond the hovering samples")
+    return {"mag_err": max_abs(mag, pm), "phase_err_deg": ph_err,
+            "mask_diff": int((sat != ps).sum()), "hovering": int(hover.sum())}
 
 
 def compare_streams(xq, taps, bit_width, sat_level, got, where: str,
@@ -401,6 +461,202 @@ def kernels_small():
     return cases
 
 
+def kernels_small_flip_flat_complex():
+    """The flip kernel, the flat form and the complex form against their
+    plain versions at small and awkward shapes; the time-major latch at
+    fewer channels than one of its blocks owns."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(8)
+    cases = []
+
+    # B8: exact, any M from 1 and any T, t_len 1 and 2, both mask dtypes,
+    # an infinite magnitude carried through
+    for t_len, m in ((1, 1), (2, 1), (1, 3), (2, 3), (2500, 1), (4099, 1),
+                     (1003, 3), (777, 56), (2049, 64), (3001, 33), (2049, 2)):
+        mag = torch.rand((t_len, m), device=dev, generator=gen)
+        mag[t_len // 2, m // 2] = float("inf")
+        ph = (torch.rand((t_len, m), device=dev, generator=gen) - 0.5) * 360.0
+        ph[t_len // 3] = 180.0   # steps of exactly +-180 and +-360
+        ph[t_len // 3 + 1:t_len // 3 + 2] = -180.0
+        sat_b = torch.rand((t_len, m), device=dev, generator=gen) > 0.9
+        for sat in (sat_b, sat_b.to(torch.float32)):
+            a = k.cm_streams(mag, ph, sat)
+            b = k.cm_streams_plain(mag, ph, sat)
+            check(all(x.shape == (m, t_len) for x in a)
+                  and all(same(x, y) for x, y in zip(a, b)),
+                  f"B8 T={t_len} M={m} {sat.dtype}: differs from plain")
+            check(bool((a[1][:, -1] == 0).all()),
+                  f"B8 T={t_len} M={m}: last dph column not zero")
+        cases.append({"case": f"B8 T={t_len} M={m}", "exact": True})
+
+    # B7 where a block has absent channels
+    for m in (1, 3, 64):
+        mag = torch.rand((5003, m), device=dev, generator=gen)
+        hi = torch.full((m,), 0.9, device=dev)
+        lo = torch.full((m,), 0.3, device=dev)
+        for ent in (None, (torch.arange(m, device=dev) % 2).float()):
+            c = k.latch_cumsums(mag, hi, lo, ent)
+            d = k.latch_cumsums_plain(mag, hi, lo, ent)
+            check(same(c, d), f"B7 M={m}: off by {max_abs(c, d):.3g}")
+        cases.append({"case": f"B7 T=5003 M={m}", "exact": True})
+
+    # B5 and B9, packed and planes ingests, with a history
+    for m, frames, bw in ((3, 777, 12), (8, 1003, 12), (56, 650, 8),
+                          (64, 2049, 12)):
+        where = f"M={m} T={frames} bw={bw}"
+        taps = Channelizer.create(m).taps_rev
+        p_taps = taps.shape[0]
+        samples = small_capture(m, frames, bw, seed=m + bw)
+        xq = torch.as_tensor(pack(samples), device=dev)
+        flat = k.channelize_streams_packed(xq, taps, bw, 0.9999)
+        res = compare_flat(xq, taps, bw, 0.9999, flat, "B5 " + where)
+        check(flat[2].sum() > 0, f"B5 {where}: the clipped segment left no "
+                                 f"saturated sample")
+        cm = k.channelize_streams_packed_cm(xq, taps, bw, 0.9999)
+        check(same(flat[0], cm[0]) and same(flat[2], cm[3].T),
+              f"B5 {where}: mag and mask are not B6's bits")
+        cut = frames // 2
+        hist = xq[(cut - (p_taps - 1)) * m: cut * m]
+        tail = xq[cut * m: frames * m]
+        part = k.channelize_streams_packed(tail, taps, bw, 0.9999,
+                                           history=hist)
+        check(all(same(a, b[cut:]) for a, b in zip(part, flat)),
+              f"B5 {where}: a block with history is not the tail of the whole")
+        compare_flat(tail, taps, bw, 0.9999, part,
+                     f"B5 {where} history at {cut}", history=hist)
+        # planes: the raw integers (widened to int16) and their float32
+        # dequantization give the packed ingest's bits, in every form
+        n = frames * m
+        xr, xi = (torch.as_tensor(np.ascontiguousarray(samples[:n, j]),
+                                  device=dev).to(torch.int16) for j in (0, 1))
+        scale = float(2.0 ** -(bw - 1))
+        fr, fi = (v.to(torch.float32) * scale for v in (xr, xi))
+        k1 = k.channelize_streams_packed_cm2(xq, taps, bw, 0.9999)
+        for planes, width in (((xr, xi), bw), ((fr, fi), 0)):
+            for fn, want in ((k.channelize_streams, flat),
+                             (k.channelize_streams_cm, cm),
+                             (k.channelize_streams_cm2, k1)):
+                got = fn(*planes, taps, width, 0.9999)
+                check(all(same(a, b) for a, b in zip(got, want)),
+                      f"{fn.__name__} {where} {planes[0].dtype}: not the "
+                      f"packed ingest's bits")
+        hp = tuple(v[(cut - (p_taps - 1)) * m: cut * m].contiguous()
+                   for v in (fr, fi))
+        tp = tuple(v[cut * m:].contiguous() for v in (fr, fi))
+        part = k.channelize_streams(*tp, taps, 0, 0.9999, history=hp)
+        check(all(same(a, b[cut:]) for a, b in zip(part, flat)),
+              f"channelize_streams {where}: planes history")
+
+        x = torch.as_tensor(iqpacket.to_complex(samples, bw), device=dev)
+        y = k.channelize_complex(x, taps)
+        yp = k.channelize_complex_plain(x, taps)
+        check(y.shape == (frames, m) and y.dtype == torch.complex64
+              and torch.allclose(torch.view_as_real(y), torch.view_as_real(yp),
+                                 rtol=MAG_TOL, atol=MAG_TOL),
+              f"B9 {where}: off by {float((y - yp).abs().max()):.3g}")
+        y2 = k.channelize_complex_planes(x.real.contiguous(),
+                                         x.imag.contiguous(), taps)
+        check(bool((y == y2).all()), f"B9 {where}: planes differ from the "
+                                     f"capture read in place")
+        check(same(y.abs(), flat[0]) or torch.allclose(
+            y.abs(), flat[0], rtol=MAG_TOL, atol=MAG_TOL),
+            f"B9 {where}: |y| is not B5's magnitude")
+        torch.cuda.synchronize()
+        cases.append({"case": "B5 B9 " + where, **res,
+                      "complex_err": float((y - yp).abs().max())})
+    return cases
+
+
+def kernels_flat_complex_main_shape(xq, samples, pipe, rows):
+    """B5, B8 and B9 against their plain versions, and timed, at M = 64 x
+    262144 frames on the dense capture; B7 and B8 on the streams B5 gives
+    them, as the flat route does."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.medians import median
+
+    m, t_len = M_MAIN, FRAMES_MAIN
+    taps = pipe.channelizer.taps_rev
+    sat_level = pipe.pdw_cfg.saturation_level
+    p = taps.shape[0]
+    n_flop = t_len * (4 * p * m + 8 * m * m)
+    n_w = 4 * (p * m + 2 * m * m)
+
+    flat = k.channelize_streams_packed(xq, taps, BIT_WIDTH, sat_level)
+    torch.cuda.synchronize()
+    res = compare_flat(xq, taps, BIT_WIDTH, sat_level, flat, "B5 main shape")
+    cm = k.channelize_streams_packed_cm(xq, taps, BIT_WIDTH, sat_level)
+    check(same(flat[0], cm[0]), "B5 main shape: mag is not B6's time-major "
+                                "mag bit for bit")
+    del cm
+    rows.append(kernel_row(
+        "channelize_streams_packed", "channelizer.cu",
+        "channelizer_kernel.py:602", res["mag_err"], False,
+        time_ms(lambda: k.channelize_streams_packed(
+            xq, taps, BIT_WIDTH, sat_level)),
+        time_ms(lambda: k.channelize_streams_packed_plain(
+            xq, taps, BIT_WIDTH, sat_level), reps=3, warmup=1),
+        None, n_bytes=n_bytes_of(xq, *flat) + n_w, n_flop=n_flop,
+        mag_equals_b6=True, shape=f"M={m} T={t_len}", **res))
+
+    mag, ph, sat = flat[0], flat[1], flat[2] > 0.5
+    # B7 on the magnitude B5 gives it, with the flat route's thresholds
+    lead, trail = pdwmod._thresholds(median(mag, dim=0), pipe.pdw_cfg)
+    a = k.latch_cumsums(mag, lead, trail)
+    b = k.latch_cumsums_plain(mag, lead, trail)
+    check(same(a, b), f"B7 flat-route shape: off by {max_abs(a, b):.3g}")
+    check(float(a[:m, -1].sum()) > 0, "B7 flat-route shape: no edge counted")
+    del a, b, lead, trail
+
+    a = k.cm_streams(mag, ph, sat)
+    b = k.cm_streams_plain(mag, ph, sat)
+    check(all(same(x, y) for x, y in zip(a, b)),
+          "B8 main shape: differs from plain")
+
+    def library():
+        d = ph[1:] - ph[:-1]
+        d = torch.where(d < -180.0, d + 360.0, d)
+        d = torch.where(d > 180.0, d - 360.0, d)
+        d = torch.cat([d, d.new_zeros((1, m))])
+        return (mag.T.contiguous(), d.T.contiguous(),
+                sat.to(torch.float32).T.contiguous())
+
+    rows.append(kernel_row(
+        "cm_streams", "transpose.cu", "transpose_kernel.py:136", 0.0, True,
+        time_ms(lambda: k.cm_streams(mag, ph, sat)),
+        time_ms(lambda: k.cm_streams_plain(mag, ph, sat), reps=3, warmup=1),
+        time_ms(library, reps=3, warmup=1),
+        n_bytes=n_bytes_of(mag, ph, sat, *a), n_flop=0,
+        shape=f"M={m} T={t_len}"))
+    del a, b, flat, mag, ph, sat
+
+    x = torch.as_tensor(iqpacket.to_complex(samples, BIT_WIDTH),
+                        device=xq.device)
+    y = k.channelize_complex(x, taps)
+    yp = k.channelize_complex_plain(x, taps)
+    err = float((y - yp).abs().max())
+    check(torch.allclose(torch.view_as_real(y), torch.view_as_real(yp),
+                         rtol=MAG_TOL, atol=MAG_TOL),
+          f"B9 main shape: off by {err:.3g}")
+    del yp
+    rows.append(kernel_row(
+        "channelize_complex", "channelizer.cu", "channelizer_kernel.py:224",
+        err, False,
+        time_ms(lambda: k.channelize_complex(x, taps)),
+        time_ms(lambda: k.channelize_complex_plain(x, taps), reps=3, warmup=1),
+        None, n_bytes=n_bytes_of(x, y) + n_w, n_flop=n_flop,
+        shape=f"M={m} T={t_len}"))
+
+
 def kernels_main_shape(xq, pipe):
     """Every kernel against its plain version, and timed, at the main
     path's shapes, on the dense capture."""
@@ -420,19 +676,8 @@ def kernels_main_shape(xq, pipe):
     mag, dph, satcs = got
     rows = []
 
-    def row(name, source, replaces, err, exact, ms, plain_ms, library_ms,
-            n_bytes, n_flop, **extra):
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_flop = n_flop / FP32_FLOP_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"sdr_channelizer_tpu_torch/ops/cuda/csrc/{source}",
-            "replaces": f"sdr_channelizer_tpu/ops/pallas/{replaces}",
-            "launches": None, "max_abs_err": err, "exact": exact,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_flop),
-            "bound_by": "bytes" if t_bytes >= t_flop else "operations",
-            "library_ms": library_ms, **extra})
+    def row(*a, **kw):
+        rows.append(kernel_row(*a, **kw))
 
     # K1: capture read once, three streams written once; FIR + four products
     row("channelize_streams_packed_cm2", "channelizer.cu",
@@ -757,24 +1002,53 @@ def write_segment(tmp: str, parts, fs: float, t0: float) -> None:
         done += len(part)
 
 
-def stream_counts():
-    from sdr_channelizer_tpu_torch.ops.cuda import (
-        channelizer_kernel, latch_kernel, pulse_stats_kernel)
+def _counters(names: dict) -> dict:
+    """``{name: (wrapper module, its counter's attribute)}`` for ``names``,
+    a dict of name -> "module.attribute" under ``ops.cuda``."""
+    import importlib
 
-    return {"channelize_streams_packed_cm": channelizer_kernel.launches_cm,
-            "latch_cumsums": latch_kernel.launches_tm,
-            "pulse_stats_sat": pulse_stats_kernel.launches,
-            "pulse_stats_dense": pulse_stats_kernel.launches_dense}
+    out = {}
+    for name, where in names.items():
+        mod, attr = where.split(".")
+        out[name] = (importlib.import_module(
+            f"sdr_channelizer_tpu_torch.ops.cuda.{mod}"), attr)
+    return out
+
+
+def read_counts(names: dict) -> dict:
+    return {n: getattr(m, a) for n, (m, a) in _counters(names).items()}
+
+
+def reset_counts(names: dict) -> None:
+    for mod, attr in _counters(names).values():
+        setattr(mod, attr, 0)
+
+
+STREAM_COUNTS = {
+    "channelize_streams_packed_cm": "channelizer_kernel.launches_cm",
+    "latch_cumsums": "latch_kernel.launches_tm",
+    "pulse_stats_sat": "pulse_stats_kernel.launches",
+    "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
+WIDEBAND_COUNTS = {
+    "latch_cumsums_wideband": "latch_kernel.launches_tm",
+    "cm_streams_wideband": "transpose_kernel.launches",
+    "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
+ROUTE_COUNTS = {
+    "channelize_streams_packed": "channelizer_kernel.launches_flat",
+    "cm_streams": "transpose_kernel.launches",
+    "channelize_complex": "channelizer_kernel.launches_complex",
+    "channelize_cm": "channelizer_kernel.launches_cm",
+    "channelize_cm2": "channelizer_kernel.launches",
+    "latch_cumsums": "latch_kernel.launches_tm",
+    "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
+
+
+def stream_counts():
+    return read_counts(STREAM_COUNTS)
 
 
 def reset_stream_counts() -> None:
-    from sdr_channelizer_tpu_torch.ops.cuda import (
-        channelizer_kernel, latch_kernel, pulse_stats_kernel)
-
-    channelizer_kernel.launches_cm = 0
-    latch_kernel.launches_tm = 0
-    pulse_stats_kernel.launches = 0
-    pulse_stats_kernel.launches_dense = 0
+    reset_counts(STREAM_COUNTS)
 
 
 def pdws_identical(a: dict, b: dict, where: str) -> None:
@@ -923,40 +1197,396 @@ def phase_streaming(pipe, caps):
     return launches
 
 
-def phase_profile(pipe, caps):
-    """Only with ``--profile``: device time by kernel name over a few steps
-    of the main path, from ``torch.profiler``."""
+def wideband_capture(n: int, pri_sec: float, start_index: int, seed: int):
+    """A pulse train of the port's own generator that clears the wideband
+    detector's 18 dB: amplitude 0.5 over noise of 0.001 a component, pulses
+    of 2800 samples.  Returns ``(spec, complex64 capture)``."""
+    from sdr_channelizer_tpu_torch.signal.synth import (
+        PulseTrainSpec, pulse_train)
+
+    spec = PulseTrainSpec(sample_rate_sps=WIDE_FS, duration_sec=n / WIDE_FS,
+                          frequency_hz=7.3e6, pulse_width_sec=50e-6,
+                          pri_sec=pri_sec, start_index=start_index,
+                          amplitude=0.5, noise_std=1e-3)
+    check(spec.num_samples == n, f"wideband capture: {spec.num_samples} "
+                                 f"samples for {n}")
+    return spec, np.ascontiguousarray(pulse_train(spec, seed=seed),
+                                      np.complex64)
+
+
+def phase_wideband(rows):
+    """The wideband path at a real size: 16,000,000 complex samples through
+    ``WidebandPdwPipeline.extract`` on the card, against the same call with
+    the plain versions and against the generator's pulses; B7 and B8 at one
+    channel against their plain versions, and timed; then 2^25 samples
+    through the blocked route against the oracle extractor."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+    from sdr_channelizer_tpu_torch.models import WidebandPdwPipeline
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.medians import median
+    from sdr_channelizer_tpu_torch.signal.synth import pulse_starts
+
+    cfg = PdwConfig.wideband(max_pulses=512, max_pulse_samples=4096)
+    pipe = WidebandPdwPipeline.from_reference(dataclasses.asdict(cfg), DEVICE)
+    n = WIDE_SAMPLES
+    spec, iq = wideband_capture(n, 1e-3, 1234, seed=3)
+    t0 = 100.0   # an epoch time would cost float64 a sample's worth of TOA
+    out = {}
+
+    reset_counts(WIDEBAND_COUNTS)
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    got = pipe.extract(iq, fs=WIDE_FS, sample_start_time=t0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_counts(WIDEBAND_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    for name, count in launches.items():
+        check(count > 0, f"wideband: never launched {name}")
+
+    plain = pipe.extract(iq, fs=WIDE_FS, sample_start_time=t0, plain=True)
+    pdws_agree(got, plain, "wideband, kernels vs plain")
+    pdws_identical(got, plain, "wideband, kernels vs plain")
+    for key in ("toa", "freq", "pw", "mag", "snr"):
+        check(bool(np.isfinite(got[key]).all()), f"wideband: non-finite {key}")
+    starts = pulse_starts(spec)
+    check(len(got["toa"]) == len(starts) > 200,
+          f"wideband: {len(got['toa'])} pulses, {len(starts)} generated")
+    toa_err = np.abs((got["toa"] - t0) * WIDE_FS - (starts + 1))
+    pw_err = np.abs(got["pw"] * WIDE_FS - spec.pw_samples)
+    f_err = np.abs(got["freq"] - spec.frequency_hz)
+    check(float(toa_err.max()) <= 1.0, f"wideband: TOA off the generator's "
+                                       f"by {toa_err.max():.3g} samples")
+    check(float(pw_err.max()) <= 16.0, f"wideband: width off the "
+                                       f"generator's by {pw_err.max():.3g}")
+    check(float(f_err.max()) <= 2e3, f"wideband: frequency off the "
+                                     f"generator's by {f_err.max():.3g} Hz")
+
+    # the step with the capture on the card, and its parts one by one
+    x = torch.as_tensor(iq, device=DEVICE)
+    step = time_ms(lambda: pipe.forward(x), reps=3, warmup=1)
+    mag, ph, sat = pdwmod._prep_streams(x, cfg.saturation_level)
+    nf = median(mag)
+    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(nf, cfg))
+    mag2, ph2, sat2 = mag[:, None], ph[:, None], sat[:, None]
+    parts = {
+        "prep_streams_ms": time_ms(lambda: pdwmod._prep_streams(
+            x, cfg.saturation_level), reps=3, warmup=1),
+        "median_ms": time_ms(lambda: median(mag), reps=3, warmup=1),
+    }
+
+    # B7 at one channel
+    a = k.latch_cumsums(mag2, lead, trail)
+    b = k.latch_cumsums_plain(mag2, lead, trail)
+    check(same(a, b), f"B7 wideband shape: off by {max_abs(a, b):.3g}")
+    check(int(a[0, -1]) == len(starts), "B7 wideband shape: edge count")
+    del b
+    rows.append(kernel_row(
+        "latch_cumsums_wideband", "latch.cu", "latch_kernel.py:283", 0.0, True,
+        time_ms(lambda: k.latch_cumsums(mag2, lead, trail), reps=3, warmup=1),
+        time_ms(lambda: k.latch_cumsums_plain(mag2, lead, trail), reps=3,
+                warmup=1),
+        None, n_bytes=n_bytes_of(mag2, a), n_flop=0, shape=f"M=1 T={n}"))
+    del a
+
+    # B8 at one channel
+    a = k.cm_streams(mag2, ph2, sat2)
+    b = k.cm_streams_plain(mag2, ph2, sat2)
+    check(all(same(u, v) for u, v in zip(a, b)),
+          "B8 wideband shape: differs from plain")
+
+    def library():
+        d = ph2[1:] - ph2[:-1]
+        d = torch.where(d < -180.0, d + 360.0, d)
+        d = torch.where(d > 180.0, d - 360.0, d)
+        d = torch.cat([d, d.new_zeros((1, 1))])
+        return (mag2.T.contiguous(), d.T.contiguous(),
+                sat2.to(torch.float32).T.contiguous())
+
+    rows.append(kernel_row(
+        "cm_streams_wideband", "transpose.cu", "transpose_kernel.py:136", 0.0,
+        True, time_ms(lambda: k.cm_streams(mag2, ph2, sat2)),
+        time_ms(lambda: k.cm_streams_plain(mag2, ph2, sat2), reps=3, warmup=1),
+        time_ms(library, reps=3, warmup=1),
+        n_bytes=n_bytes_of(mag2, ph2, sat2, *a), n_flop=0,
+        shape=f"M=1 T={n}"))
+    del a, b
+    parts["tail_ms"] = time_ms(
+        lambda: pdwmod._extract_wideband_from_streams(mag, ph, sat, cfg, nf),
+        reps=3, warmup=1)
+    out["single_shot"] = {
+        "samples": n, "pulses": len(got["toa"]), "generated": len(starts),
+        "toa_err_samples": float(toa_err.max()),
+        "pw_err_samples": float(pw_err.max()),
+        "freq_err_hz": float(f_err.max()), "equals_plain": True,
+        "extract_s": wall, "step_ms": step,
+        "msamples_per_s": n / step / 1e3, "peak_memory_bytes": peak,
+        "launches": dict(launches), **parts}
+    del x, mag, ph, sat, mag2, ph2, sat2, iq, plain
+    torch.cuda.empty_cache()
+
+    # 2^25 samples: the blocked route.  One pulse straddles the first block
+    # boundary, one clips, one is open at the end of the capture.
+    n = WIDE_LONG_SAMPLES
+    block = 1 << 23
+    pri_n = 112000
+    spec, iq = wideband_capture(n, pri_n / WIDE_FS, (block - 1400) % pri_n,
+                                seed=4)
+    starts = pulse_starts(spec)
+    check(bool(np.any((starts < block) & (starts + spec.pw_samples > block))),
+          "wideband, blocked: no pulse straddles the block boundary")
+    clip = starts[len(starts) // 2]
+    iq[clip:clip + spec.pw_samples] = 1.0
+    iq[-1000:] = 0.5
+    x = torch.as_tensor(iq, device=DEVICE)
+    del iq
+    reset_counts(WIDEBAND_COUNTS)
+    torch.cuda.reset_peak_memory_stats()
+    nf, batch = pipe.forward(x)
+    torch.cuda.synchronize()
+    blocked_launches = read_counts(WIDEBAND_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    n_blocks = n // block
+    check(blocked_launches["latch_cumsums_wideband"] == n_blocks
+          and blocked_launches["cm_streams_wideband"] == n_blocks,
+          f"wideband, blocked: launch counts {blocked_launches}")
+    step = time_ms(lambda: pipe.forward(x), reps=3, warmup=1)
+    ref = pdwmod.extract_pdws(x, cfg, noise_floor=nf, stats="xla")
+    got_b, ref_b = pdwmod.batch_to_host(batch), pdwmod.batch_to_host(ref)
+    for key in ("toa_idx", "te_idx", "pw_sec", "saturated", "valid", "count"):
+        check(np.array_equal(getattr(got_b, key), getattr(ref_b, key)),
+              f"wideband, blocked vs the oracle: {key} differs")
+    check(np.allclose(got_b.mag, ref_b.mag, rtol=MAG_TOL, atol=MAG_TOL)
+          and np.allclose(got_b.snr_db, ref_b.snr_db, rtol=0, atol=SNR_TOL_DB)
+          and np.allclose(got_b.freq_offset_hz * WIDE_FS,
+                          ref_b.freq_offset_hz * WIDE_FS, rtol=0,
+                          atol=FREQ_TOL_HZ),
+          "wideband, blocked vs the oracle: statistics differ")
+    count = int(got_b.count)
+    check(count == len(starts), f"wideband, blocked: {count} pulses, "
+                                f"{len(starts)} closed ones generated")
+    check(int(got_b.saturated.sum()) == 1, "wideband, blocked: the clipped "
+                                           "pulse is not the one flagged")
+    out["blocked"] = {
+        "samples": n, "blocks": n_blocks, "pulses": count,
+        "equals_oracle_on_exact_keys": True,
+        "mag_equals_oracle_bit_for_bit": bool(
+            np.array_equal(got_b.mag, ref_b.mag)),
+        "step_ms": step, "msamples_per_s": n / step / 1e3,
+        "peak_memory_bytes": peak, "launches": blocked_launches}
+    del x, batch, ref
+    torch.cuda.empty_cache()
+    emit("wideband", max_pulses=cfg.max_pulses,
+         max_pulse_samples=cfg.max_pulse_samples, fs=WIDE_FS,
+         checked=["latch_cumsums_wideband", "cm_streams_wideband"], **out)
+    # the statistics kernel's row counts the streamed path's launches
+    del launches["pulse_stats_dense"]
+    return launches
+
+
+def phase_routes(pipe, caps):
+    """The single-shot routes ``"flat"`` and ``"cm"`` against ``"cm2"`` and
+    against their own plain versions on the card at M = 64 x 262144 frames;
+    a float32 payload against the int16 payload it
+    was dequantized from; the complex-free step (``extract_planes``)."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel
+    from sdr_channelizer_tpu_torch.ops.medians import median
+
+    fs = M_MAIN * 1e6
+    n = M_MAIN * FRAMES_MAIN
+
+    def counts():
+        return read_counts(ROUTE_COUNTS)
+
+    def reset():
+        reset_counts(ROUTE_COUNTS)
+
+    out = {}
+    launches = {}
+    for name, samples in caps.items():
+        xq = torch.as_tensor(pack(samples), device=pipe.device)
+        pdws, res = {}, {}
+        for route in ("cm2", "flat", "cm"):
+            reset()
+            _, _, batch = pipe.forward_packed(xq, BIT_WIDTH, route=route)
+            pdws[route] = pipe._finalize(batch, fs, 0.0, 0.0)
+            seen = counts()
+            if route == "flat":
+                check(seen["channelize_streams_packed"] == 1
+                      and seen["cm_streams"] == 1
+                      and seen["latch_cumsums"] == 1
+                      and seen["pulse_stats_dense"] == 2,
+                      f"route flat, {name}: launch counts {seen}")
+                for key in ("channelize_streams_packed", "cm_streams"):
+                    launches[key] = launches.get(key, 0) + seen[key]
+            if route == "cm":
+                check(seen["channelize_cm"] == 1 and seen["cm_streams"] == 0
+                      and seen["latch_cumsums"] == 1,
+                      f"route cm, {name}: launch counts {seen}")
+            res[route] = {
+                "pulses": len(pdws[route]["toa"]),
+                "step_ms": time_ms(lambda: pipe.forward_packed(
+                    xq, BIT_WIDTH, route=route), reps=5)}
+        for route in ("flat", "cm"):
+            if name == "sparse":
+                pdws_agree(pdws[route], pdws["cm2"],
+                           f"route {route} vs cm2, sparse capture")
+            else:
+                band = DENSE_COUNT_BAND * len(pdws["cm2"]["toa"])
+                check(abs(len(pdws[route]["toa"]) - len(pdws["cm2"]["toa"]))
+                      <= band, f"route {route} vs cm2, dense capture: "
+                               f"{len(pdws[route]['toa'])} pulses vs "
+                               f"{len(pdws['cm2']['toa'])}")
+            for key in ("toa", "pw", "channel", "sat"):
+                check(np.array_equal(pdws[route][key], pdws["cm2"][key]),
+                      f"route {route} vs cm2, {name} capture: {key} differs")
+            res[route]["exact_keys_equal_cm2"] = True
+
+            # the route against its plain versions on the card: the tail
+            # alone on the streams the channelizer kernel gave (the latch,
+            # the flip and the statistics kernels are exact, so the PDWs
+            # are bit-identical), then the whole route (the channelizer's
+            # plain version differs in the last place of a float32)
+            front = {"flat": k.KERNELS.channelize_flat,
+                     "cm": k.KERNELS.channelize_cm}[route]
+            streams = front(xq, pipe.channelizer.taps_rev,
+                            bit_width=BIT_WIDTH,
+                            sat_level=pipe.pdw_cfg.saturation_level)
+            tail = {}
+            for label, ops in (("kernels", k.KERNELS), ("plain", k.PLAIN)):
+                batch = pipe._fused_tail(route, lambda _: streams, ops)[2]
+                tail[label] = pipe._finalize(batch, fs, 0.0, 0.0)
+            del streams, batch
+            where = f"route {route}, {name} capture"
+            pdws_identical(tail["kernels"], pdws[route],
+                           f"{where}: the tail alone vs the route")
+            pdws_identical(tail["kernels"], tail["plain"],
+                           f"{where}: tail kernels vs plain")
+            res[route]["tail_equals_plain_bit_for_bit"] = True
+            _, _, batch = pipe.forward_packed(xq, BIT_WIDTH, route=route,
+                                              plain=True)
+            plain = pipe._finalize(batch, fs, 0.0, 0.0)
+            del batch
+            res[route]["pulses_plain"] = len(plain["toa"])
+            if name == "sparse":
+                pdws_agree(pdws[route], plain, f"{where}: kernels vs plain")
+            else:
+                band = DENSE_COUNT_BAND * len(plain["toa"])
+                check(abs(len(pdws[route]["toa"]) - len(plain["toa"]))
+                      <= band, f"{where}: {len(pdws[route]['toa'])} pulses "
+                               f"vs {len(plain['toa'])} from the plain "
+                               f"versions")
+        # the flat and cm routes' noise floor: a sort along the strided axis
+        mag = channelizer_kernel.channelize_streams_packed(
+            xq, pipe.channelizer.taps_rev, BIT_WIDTH)[0]
+        res["median_dim0_ms"] = time_ms(lambda: median(mag, dim=0), reps=3,
+                                        warmup=1)
+        del mag, xq
+        out[name] = res
+
+    # a float32 payload takes the planes ingest of the cm2 form and gives
+    # the int16 payload's PDWs; so does a complex capture through extract()
+    samples = caps["sparse"]
+    ref = pipe.extract_fused(samples, BIT_WIDTH, fs=fs)
+    iq = iqpacket.to_complex(samples, BIT_WIDTH)
+    as_float = np.stack([iq.real, iq.imag], -1)
+    reset()
+    got = pipe.extract_fused(as_float, 0, fs=fs)
+    check(counts()["channelize_cm2"] == 1, "float payload: the cm2 form on "
+                                           "planes was not launched")
+    pdws_agree(got, ref, "float32 payload vs int16 payload")
+    pdws_identical(got, ref, "float32 payload vs int16 payload")
+    pdws_identical(pipe.extract(iq, fs=fs), ref,
+                   "extract() of the complex capture vs int16 payload")
+    # the complex-free step: B9, stream math in torch, the kernel tail
+    reset()
+    t0 = time.perf_counter()
+    planes = pipe.extract_planes(iq, fs=fs)
+    wall = time.perf_counter() - t0
+    seen = counts()
+    check(seen["channelize_complex"] == 1 and seen["cm_streams"] == 1,
+          f"extract_planes: launch counts {seen}")
+    launches["channelize_complex"] = seen["channelize_complex"]
+    check(abs(len(planes["toa"]) - len(ref["toa"]))
+          <= DENSE_COUNT_BAND * len(ref["toa"]),
+          f"extract_planes: {len(planes['toa'])} pulses vs {len(ref['toa'])}")
+    out["float_payload_equals_int16"] = True
+    out["extract_planes"] = {
+        "pulses": len(planes["toa"]), "extract_s": wall,
+        **recovers_generator(planes, n, M_MAIN)}
+    emit("routes", bands=M_MAIN, frames=FRAMES_MAIN, **out)
+    return launches
+
+
+def profile_step(label: str, fn, steps: int = 5) -> None:
+    """Device time by kernel name over a few calls of ``fn``, from
+    ``torch.profiler``, as one ``profile`` line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    steps = 5
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        is_kernel = getattr(ev, "device_type", None) is not None and \
+            "cuda" in str(ev.device_type).lower()
+        if is_kernel and dev_us > 0:
+            rows.append({"kernel": ev.key[:80], "calls_per_step":
+                         ev.count / steps,
+                         "ms_per_step": dev_us / 1e3 / steps})
+    rows.sort(key=lambda r: -r["ms_per_step"])
+    busy = sum(r["ms_per_step"] for r in rows)
+    emit("profile", capture=label, steps=steps,
+         device_busy_ms_per_step=busy, kernels=rows[:14],
+         rest_ms_per_step=sum(r["ms_per_step"] for r in rows[14:]))
+
+
+def phase_profile(pipe, caps):
+    """Only with ``--profile``: device time by kernel name over a few steps
+    of the main path on both captures, of the flat and cm routes and the
+    complex form on the dense one, and of the wideband step."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.models import WidebandPdwPipeline
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+
     for name, samples in caps.items():
         xq = torch.as_tensor(pack(samples), device=pipe.device)
-        pipe.forward_packed(xq, BIT_WIDTH)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                pipe.forward_packed(xq, BIT_WIDTH)
-            torch.cuda.synchronize()
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "cuda_time_total", 0.0)
-            is_kernel = getattr(ev, "device_type", None) is not None and \
-                "cuda" in str(ev.device_type).lower()
-            if is_kernel and dev_us > 0:
-                rows.append({"kernel": ev.key[:80], "calls_per_step":
-                             ev.count / steps,
-                             "ms_per_step": dev_us / 1e3 / steps})
-        rows.sort(key=lambda r: -r["ms_per_step"])
-        busy = sum(r["ms_per_step"] for r in rows)
-        emit("profile", capture=name, steps=steps,
-             device_busy_ms_per_step=busy,
-             kernels=rows[:14],
-             rest_ms_per_step=sum(r["ms_per_step"] for r in rows[14:]))
+        profile_step(name, lambda: pipe.forward_packed(xq, BIT_WIDTH))
+        if name == "dense":
+            for route in ("flat", "cm"):
+                profile_step(f"{name}, route {route}",
+                             lambda: pipe.forward_packed(xq, BIT_WIDTH,
+                                                         route=route))
         del xq
+    x = torch.as_tensor(iqpacket.to_complex(caps["dense"], BIT_WIDTH),
+                        device=pipe.device)
+    profile_step("dense, channelize_complex", lambda: k.channelize_complex(
+        x, pipe.channelizer.taps_rev))
+    del x
+    wide = WidebandPdwPipeline(PdwConfig.wideband(
+        max_pulses=512, max_pulse_samples=4096), DEVICE)
+    x = torch.as_tensor(wideband_capture(WIDE_SAMPLES, 1e-3, 1234, seed=3)[1],
+                        device=DEVICE)
+    profile_step("wideband, 16,000,000 samples", lambda: wide.forward(x),
+                 steps=3)
 
 
 def phase_profile_streaming(pipe, caps):
@@ -1064,7 +1694,8 @@ def phase_profile_streaming(pipe, caps):
 
 def phase_cli():
     """A synthetic ``.iq`` file through ``pdw --channelized`` on the card,
-    then the same samples as two files through ``pdw --stream``."""
+    then the same samples as two files through ``pdw --stream``, then
+    through ``pdw`` without ``--channelized`` (wideband)."""
     from sdr_channelizer_tpu_torch.cli.main import main
     from sdr_channelizer_tpu_torch.io import iqpacket
     from sdr_channelizer_tpu_torch.signal.synth import (
@@ -1099,6 +1730,12 @@ def phase_cli():
                    os.path.join(tmp, "ck"), "--out", out] + common)
         check(rc == 0, f"cli --stream: exit code {rc}")
         ps = dict(np.load(out))
+
+        out = os.path.join(tmp, "pdw_wide.npz")
+        rc = main(["pdw", path, "--max-pulses", "64", "--max-pulse-samples",
+                   "8192", "--device", DEVICE, "--out", out])
+        check(rc == 0, f"cli wideband: exit code {rc}")
+        pw = dict(np.load(out))
     starts = pulse_starts(spec)
     sel = (p["snr"] > 25) & (np.abs(p["freq"] - spec.frequency_hz) < 0.5e6)
     check(int(sel.sum()) == len(starts),
@@ -1109,8 +1746,15 @@ def phase_cli():
     check(float(np.abs(p["pw"][sel] - spec.pulse_width_sec).max()) < 12e-6,
           "cli: pulse width off the truth")
     pdws_agree(ps, p, "cli --stream vs cli")
+    check(len(pw["toa"]) == len(starts),
+          f"cli wideband: {len(pw['toa'])} pulses, {len(starts)} sent")
+    check(float(np.abs(pw["toa"] - 1723800000.0 - want).max()) < 0.5e-6
+          and float(np.abs(pw["pw"] - spec.pulse_width_sec).max()) < 1e-6
+          and float(np.abs(pw["freq"] - spec.frequency_hz).max()) < 2e3,
+          "cli wideband: TOA, width or frequency off the truth")
     emit("cli", pulses=int(len(p["toa"])), in_tone_bin=int(sel.sum()),
-         sent=int(len(starts)), stream_pulses=int(len(ps["toa"])))
+         sent=int(len(starts)), stream_pulses=int(len(ps["toa"])),
+         wideband_pulses=int(len(pw["toa"])))
 
 
 def main() -> int:
@@ -1135,12 +1779,13 @@ def main() -> int:
             pdw_cfg=PdwConfig.channelized(max_pulses=512,
                                           max_pulse_samples=1024))
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-        small = kernels_small()
+        small = kernels_small() + kernels_small_flip_flat_complex()
         n = M_MAIN * FRAMES_MAIN
         caps = {"sparse": quantize(make_capture(n, M_MAIN, sparse=True)),
                 "dense": quantize(make_capture(n, M_MAIN, sparse=False))}
         xq = torch.as_tensor(pack(caps["dense"]), device=pipe.device)
         rows = kernels_main_shape(xq, pipe)
+        kernels_flat_complex_main_shape(xq, caps["dense"], pipe, rows)
         del xq
         torch.cuda.empty_cache()
         emit("kernels", small_shapes=small, main_shape="M=64 T=262144, dense "
@@ -1149,6 +1794,8 @@ def main() -> int:
              checked=[r["name"] for r in rows])
         launches = phase_main_path(pipe, caps)
         launches.update(phase_streaming(pipe, caps))
+        launches.update(phase_routes(pipe, caps))
+        launches.update(phase_wideband(rows))
         if "--profile" in sys.argv[1:]:
             phase_profile(pipe, caps)
             phase_profile_streaming(pipe, caps)

@@ -1,5 +1,5 @@
-"""CLI entry point of the port: ``generate``, ``pdw --channelized`` and
-``pdw --stream [--channelized]``.
+"""CLI entry point of the port: ``generate``, ``pdw`` (wideband, or
+channelized with ``--channelized``) and ``pdw --stream [--channelized]``.
 
 The other workflows of the JAX package's CLI are not ported yet and exit
 with an error that says so.
@@ -114,20 +114,22 @@ def _pdw_stream(args) -> int:
 
 
 def cmd_pdw(args) -> int:
-    """create_pdws_channelized.m parity for integer-payload ``.iq`` files,
-    through the packed main path; with ``--stream``, blockwise over
+    """create_pdws.m parity (wideband) and, with ``--channelized``,
+    create_pdws_channelized.m parity through the packed main path, for
+    integer-payload ``.iq`` files; with ``--stream``, blockwise over
     contiguous multi-file segments."""
     from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.io import iqpacket
     from sdr_channelizer_tpu_torch.io.convert import load_capture_raw
-    from sdr_channelizer_tpu_torch.models import ChannelizerPipeline
+    from sdr_channelizer_tpu_torch.models import (
+        ChannelizerPipeline,
+        WidebandPdwPipeline,
+    )
 
     if args.shards > 1:
         raise _not_ported("pdw --shards (multi-device extraction)")
     if args.stream:
         return _pdw_stream(args)
-    if not args.channelized:
-        raise _not_ported("wideband pdw (run with --channelized, or with "
-                          "--stream)")
 
     all_pdws = []
     for path in args.files:
@@ -138,6 +140,20 @@ def cmd_pdw(args) -> int:
         if raw.dtype not in (np.int16, np.int8):
             raise _not_ported(f"{raw.dtype} payloads ({path})")
         fs = float(meta["fs"])
+        fc = float(meta.get("fc", 0.0))
+        t0 = float(meta.get("sampleStartTime", 0.0))
+        if not args.channelized:
+            cfg = PdwConfig.wideband(max_pulses=args.max_pulses,
+                                     max_pulse_samples=args.max_pulse_samples)
+            if args.threshold_db is not None:
+                cfg = dataclasses.replace(cfg,
+                                          snr_threshold_db=args.threshold_db)
+            pipe = WidebandPdwPipeline(pdw_cfg=cfg, device=args.device)
+            pdws = pipe.extract(iqpacket.to_complex(raw, bw), fs=fs, fc=fc,
+                                sample_start_time=t0)
+            all_pdws.append(pdws)
+            print(f"{path}: {len(pdws['toa'])} pulses")
+            continue
         m = _bands_for(args, fs)
         cfg = PdwConfig.channelized(max_pulses=args.max_pulses,
                                     max_pulse_samples=args.max_pulse_samples)
@@ -145,9 +161,8 @@ def cmd_pdw(args) -> int:
             cfg = dataclasses.replace(cfg, snr_threshold_db=args.threshold_db)
         pipe = ChannelizerPipeline.create(m, pdw_cfg=cfg, device=args.device)
         n = len(raw) // m * m
-        pdws = pipe.extract_fused(
-            raw[:n], bit_width=bw, fs=fs, fc=float(meta.get("fc", 0.0)),
-            sample_start_time=float(meta.get("sampleStartTime", 0.0)))
+        pdws = pipe.extract_fused(raw[:n], bit_width=bw, fs=fs, fc=fc,
+                                  sample_start_time=t0)
         all_pdws.append(pdws)
         print(f"{path}: {len(pdws['toa'])} pulses")
     return _save_pdws(args, all_pdws)

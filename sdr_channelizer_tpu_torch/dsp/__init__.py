@@ -5,10 +5,12 @@ from sdr_channelizer_tpu_torch.dsp.channelizer import (  # noqa: F401
     ChannelizerState,
     center_frequencies,
     channelize,
+    channelize_planes,
     dft_matrix,
 )
 from sdr_channelizer_tpu_torch.dsp.pdw import (  # noqa: F401
     PdwBatch,
+    extract_pdws,
     extract_pdws_channelized,
     finalize_pdws,
 )

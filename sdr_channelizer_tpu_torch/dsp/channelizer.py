@@ -12,7 +12,9 @@ Frame convention (output row ``n`` consumes input frame ``n`` fully):
 
 with frames ``F[n, rho] = x[nM + rho]`` and the frame-aligned polyphase taps
 ``Hr[p, rho] = h[pM + (M-1-rho)]``.  The CUDA channelizer kernel's plain
-version is checked against this module.
+version is checked against this module.  On a CUDA device the DFT-product
+form (``method="dft"``, and ``channelize_planes``) runs in the channelizer
+kernel's complex form; the FFT form stays the oracle everywhere.
 """
 
 from __future__ import annotations
@@ -143,14 +145,37 @@ def channelize(x, chan: Channelizer, shift: bool = True, method: str = "fft",
     """Channelize a 1-D complex capture; returns ``(N // M, M)`` complex64.
 
     ``method``: ``"fft"`` (the oracle) or ``"dft"`` (product with the
-    shift-folded DFT matrix, the form the kernel computes)."""
+    shift-folded DFT matrix, the form the kernel computes; on a CUDA device
+    the channelizer kernel computes it)."""
     device = resolve_device(device)
     m = chan.num_bands
     x = torch.as_tensor(x).to(device=device, dtype=torch.complex64)
+    if method == "dft" and device.type == "cuda" and x.ndim == 1:
+        from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel
+
+        return channelizer_kernel.channelize_complex(
+            x.contiguous(), chan.taps_rev, shift)
     n_frames = x.shape[-1] // m
     frames = x[: n_frames * m].reshape(n_frames, m)
     taps = torch.as_tensor(chan.taps_rev, device=device)
     return _bands(fir_branches(frames, taps), m, shift, method)
+
+
+def channelize_planes(xr, xi, chan: Channelizer, shift: bool = True,
+                      device=None):
+    """Channelize with no complex dtype on the way in: 1-D float32 sample
+    planes -> ``(yr, yi)``, each ``(N // M, M)`` float32, the numbers of
+    ``channelize(..., method="dft")``: the branch FIR on each plane and the
+    DFT as four real products, ``yr = ur Wr - ui Wi``, ``yi = ur Wi + ui
+    Wr``.  On a CUDA device the channelizer kernel computes them."""
+    from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel
+
+    device = resolve_device(device)
+    xr, xi = (torch.as_tensor(v).to(device=device, dtype=torch.float32)
+              .contiguous() for v in (xr, xi))
+    y = channelizer_kernel.channelize_complex_planes(xr, xi, chan.taps_rev,
+                                                     shift)
+    return y.real, y.imag
 
 
 def _bands(u: torch.Tensor, m: int, shift: bool, method: str) -> torch.Tensor:

@@ -19,10 +19,20 @@ Two kinds of extractor live here.  ``extract_pdws_core`` and its block
 form ``extract_pdws_block_core`` are the oracle: a two-bit latch over {set,
 reset, hold, toggle}, edge lists, gathered windows and sort-based medians,
 all plain PyTorch.  ``_extract_channelized_cm2`` (the single-shot main
-path's tail) and ``_extract_channelized_pallas_stats`` (the streamed
-block's tail) consume the channelizer kernel's streams and run the latch,
-the rank search and the per-pulse statistics through the hand-written
+path's tail) and ``_extract_channelized_pallas_stats`` (the tail of the
+streamed block, of the flat and cm routes and of wideband extraction, which
+is its one-channel case) consume detection streams and run the latch, the
+flip, the rank search and the per-pulse statistics through the hand-written
 kernels (``ops.cuda``).
+
+``stats`` chooses the tail where an entry point offers it (the values keep
+the names of the JAX package): ``"pallas"`` is the kernel tail, ``"xla"``
+the oracle tail, ``"blocked"`` (wideband only) the kernel tail block by
+block.  ``"auto"`` is the kernel tail for tensors on a CUDA device, whatever
+the capture's length or the window, and the oracle tail for tensors on the
+CPU; an explicit ``"pallas"`` on the CPU runs the kernel tail through the
+kernels' plain versions.  From 2^24 samples on the wideband kernel tail
+goes block by block, because the latch counts are float32.
 
 The block contract, shared by the three block-capable extractors: the
 streams cover ``own_len`` owned samples plus a right halo, the latch enters
@@ -294,18 +304,118 @@ def _prep_streams(iq: torch.Tensor, saturation_level: float):
     return mag, phase_deg, sat
 
 
+def _prep_streams_planes(yr: torch.Tensor, yi: torch.Tensor,
+                         saturation_level: float):
+    """Detection streams from real and imaginary float planes."""
+    mag = torch.sqrt(yr * yr + yi * yi)
+    phase_deg = torch.atan2(yi, yr) * _RAD2DEG
+    sat = (yr.abs() >= saturation_level) | (yi.abs() >= saturation_level)
+    return mag, phase_deg, sat
+
+
+def _kernel_tail(stats: str, where: torch.Tensor) -> bool:
+    """Whether ``stats`` means the kernel tail for tensors on ``where``'s
+    device (see the module docstring)."""
+    if stats not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown stats {stats!r}")
+    return stats == "pallas" or (stats == "auto" and where.is_cuda)
+
+
+def _extract_wideband_from_streams(
+    mag: torch.Tensor,
+    phase_deg: torch.Tensor,
+    sat: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: torch.Tensor,
+    stats: str = "auto",
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Wideband extraction from (T,) detection streams, shared by the
+    complex and the planes entry points: the kernel tail as its one-channel
+    case, block by block from 2^24 samples on, or the oracle tail."""
+    if stats != "blocked" and _kernel_tail(stats, mag):
+        stats = "blocked" if mag.shape[-1] >= (1 << 24) else "pallas"
+    if stats == "blocked":
+        return _extract_wideband_blocked(mag, phase_deg, sat, cfg,
+                                         noise_floor, ops=ops)
+    if stats == "pallas":
+        batch = _extract_channelized_pallas_stats(
+            mag[:, None], phase_deg[:, None], sat[:, None], cfg,
+            noise_floor.reshape(1), ops=ops)
+        return PdwBatch(**{f.name: getattr(batch, f.name)[0]
+                           for f in dataclasses.fields(PdwBatch)})
+    return extract_pdws_core(mag, phase_deg, sat, noise_floor, cfg)
+
+
+def extract_pdws(
+    iq: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+    stats: str = "auto",
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Wideband PDW extraction from a 1-D complex capture.
+
+    ``pw_sec`` / ``freq_offset_hz`` in the returned batch are in units of
+    samples and cycles per sample; :func:`finalize_pdws` scales them by the
+    true ``fs`` on the host.  ``stats`` as in the module docstring.
+    """
+    mag, phase_deg, sat = _prep_streams(iq, cfg.saturation_level)
+    if noise_floor is None:
+        noise_floor = median(mag)
+    return _extract_wideband_from_streams(mag, phase_deg, sat, cfg,
+                                          noise_floor, stats=stats, ops=ops)
+
+
+def extract_pdws_planes(
+    yr: torch.Tensor,
+    yi: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+    stats: str = "auto",
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Wideband extraction from two float planes: the routing of
+    :func:`extract_pdws`."""
+    mag, phase_deg, sat = _prep_streams_planes(yr, yi, cfg.saturation_level)
+    if noise_floor is None:
+        noise_floor = median(mag)
+    return _extract_wideband_from_streams(mag, phase_deg, sat, cfg,
+                                          noise_floor, stats=stats, ops=ops)
+
+
 def extract_pdws_channelized_streams(
     mag: torch.Tensor,
     phase_deg: torch.Tensor,
     sat: torch.Tensor,
     cfg: PdwConfig,
     noise_floor: Optional[torch.Tensor] = None,
+    stats: str = "auto",
+    ops=kernels.KERNELS,
 ) -> PdwBatch:
-    """Per-channel oracle extraction from (T, M) detection streams."""
+    """Per-channel extraction from time-major (T, M) detection streams
+    (``sat`` a bool or 0/1 mask); ``stats`` as in the module docstring."""
     if noise_floor is None:
         noise_floor = median(mag, dim=0)
+    if _kernel_tail(stats, mag):
+        return _extract_channelized_pallas_stats(
+            mag, phase_deg, sat, cfg, noise_floor, ops=ops)
     return extract_pdws_core(mag.T.contiguous(), phase_deg.T.contiguous(),
-                             sat.T.contiguous(), noise_floor, cfg)
+                             sat.T.contiguous().to(torch.bool), noise_floor,
+                             cfg)
+
+
+def extract_pdws_channelized_planes(
+    yr: torch.Tensor,
+    yi: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Per-channel extraction from (T, M) float planes."""
+    mag, phase_deg, sat = _prep_streams_planes(yr, yi, cfg.saturation_level)
+    return extract_pdws_channelized_streams(mag, phase_deg, sat, cfg,
+                                            noise_floor, ops=ops)
 
 
 def extract_pdws_channelized(
@@ -318,7 +428,7 @@ def extract_pdws_channelized(
     independent per channel.  Batch tensors have shape (M, max_pulses)."""
     mag, phase_deg, sat = _prep_streams(chan_iq, cfg.saturation_level)
     return extract_pdws_channelized_streams(mag, phase_deg, sat, cfg,
-                                            noise_floor)
+                                            noise_floor, stats="xla")
 
 
 def noise_floor_cm(mag_cm: torch.Tensor, m: int, t_len: int,
@@ -488,12 +598,15 @@ def _extract_channelized_pallas_stats(
     cm_streams=None,
     ops=kernels.KERNELS,
 ) -> PdwBatch:
-    """Channelized extraction from a time-major magnitude: the streamed
-    block's tail (the function keeps the name of its JAX counterpart).
+    """Channelized extraction from a time-major magnitude: the kernel tail
+    of the streamed block, of the flat and cm routes and of wideband
+    extraction (the function keeps the name of its JAX counterpart).
 
     ``mag`` is (T, M); ``cm_streams`` are the channel-major ``(mag_cm,
     dph_cm, sat_cm)`` that the channelizer kernel's cm form wrote beside it,
-    ``sat_cm`` a 0/1 mask.  The latch runs on the time-major magnitude and
+    ``sat_cm`` a 0/1 mask.  Without them the flip kernel makes them from
+    ``mag``, the time-major phase ``phase_deg`` in degrees and the mask
+    ``sat`` (bool or 0/1).  The latch runs on the time-major magnitude and
     leaves the edge counts stacked channel-major, one rank search finds the
     edges, and the statistics kernel reads the saturation mask itself.
     ``entry_active`` / ``own_len`` give the block contract of
@@ -506,15 +619,7 @@ def _extract_channelized_pallas_stats(
     costs the kernel one index read, so the lists are not compacted.  A
     configuration whose ``max_pulse_samples`` is no longer than the short
     window has one tier and takes the slot grid as it is.
-
-    Without ``cm_streams`` the streams would come from ``phase_deg`` and
-    ``sat`` through the flip kernel, which is not ported yet.
     """
-    if cm_streams is None:
-        raise NotImplementedError(
-            "not ported yet: extraction from time-major phase and saturation "
-            "(needs the flip kernel); pass cm_streams")
-    mag_cm, dph_cm, sat_cm = cm_streams
     t_len, m = mag.shape
     if t_len < 1:
         raise ValueError("block shorter than one channelizer frame")
@@ -545,6 +650,20 @@ def _extract_channelized_pallas_stats(
     matched = (slot < n_own[:, None]) & (te_idx < t_len)
     count = matched.sum(1).clamp(max=cfg.max_pulses).to(torch.int32)
     valid = slot < count[:, None]
+
+    if cm_streams is not None:
+        mag_cm, dph_cm, sat_cm = cm_streams
+    else:
+        # Only a block-contract caller can carry the +inf pad that keeps the
+        # latch open past the end of the capture.  It is kept out of the
+        # statistics streams, as in the JAX package; no matched pulse covers
+        # it (the latch never closes over it), so emitted values are the
+        # same.
+        mag_s = torch.where(torch.isinf(mag), torch.zeros_like(mag), mag) \
+            if own_len is not None else mag
+        mag_cm, dph_cm, sat_cm = ops.cm_streams(mag_s.contiguous(),
+                                                phase_deg.contiguous(),
+                                                sat.contiguous())
 
     if w > _SHORT_WINDOW:
         plen = te_idx - toa_idx + 1
@@ -598,6 +717,78 @@ def _extract_channelized_pallas_stats(
         valid=valid,
         count=count,
     )
+
+
+def _extract_wideband_blocked(
+    mag: torch.Tensor,
+    phase_deg: torch.Tensor,
+    sat: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: torch.Tensor,
+    block_len: int = 1 << 23,
+    ops=kernels.KERNELS,
+) -> PdwBatch:
+    """Wideband extraction through the kernel tail, block by block over the
+    time axis: for captures of 2^24 samples and more, whose latch counts
+    would not be exact in float32.  The latch is carried by composing the
+    blocks' transfer functions, every block sees a right halo of
+    ``max_pulse_samples``: the block contract, in memory.
+
+    Equal to the single-shot extractor for pulses no longer than the halo;
+    a pulse open at the end of the capture is never emitted (a +inf
+    magnitude is appended there, so it never closes).
+
+    The blocks' extractions and the transfer chain are all dispatched first;
+    then every field comes to the host once, stacked over the blocks.
+    """
+    t_len = mag.shape[0]
+    halo = cfg.max_pulse_samples
+    nf = noise_floor.reshape(1)
+    entry = torch.zeros(1, dtype=torch.bool, device=mag.device)
+    n_blocks = (t_len + block_len - 1) // block_len
+
+    names = [f.name for f in dataclasses.fields(PdwBatch) if f.name != "count"]
+    batches, starts = [], []
+    for k in range(n_blocks):
+        s0 = k * block_len
+        s1 = min(s0 + block_len, t_len)
+        h1 = min(s1 + halo, t_len)
+        mag_e, ph_e, sat_e = mag[s0:h1], phase_deg[s0:h1], sat[s0:h1]
+        if h1 == t_len:  # the capture ends in this view: open pulses die
+            mag_e = torch.cat([mag_e, mag_e.new_full((1,), float("inf"))])
+            ph_e = torch.cat([ph_e, ph_e.new_zeros(1)])
+            sat_e = torch.cat([sat_e, sat_e.new_zeros(1)])
+        batches.append(_extract_channelized_pallas_stats(
+            mag_e[:, None], ph_e[:, None], sat_e[:, None], cfg, nf,
+            entry_active=entry, own_len=s1 - s0, ops=ops))
+        a, b = block_transfer(mag[s0:s1][None, :], nf[:, None],
+                              cfg.snr_threshold_db, cfg.trailing_threshold_db)
+        entry = torch.where(entry, b, a)
+        starts.append(s0)
+
+    # one stacked fetch per field (every block has the same slot axis)
+    stacked = {n: torch.stack([getattr(b, n)[0] for b in batches]).cpu().numpy()
+               for n in names}
+    sel = stacked["valid"]
+    cat = {}
+    for n in names:
+        v = stacked[n]
+        if n in ("toa_idx", "te_idx"):
+            v = v + np.asarray(starts, np.int32)[:, None]
+        cat[n] = np.concatenate(
+            [v[k][sel[k]] for k in range(n_blocks)])[: cfg.max_pulses]
+    total = len(cat["toa_idx"])
+    pad = cfg.max_pulses - total
+    fills = {"toa_idx": -1, "te_idx": -1, "valid": False, "saturated": False}
+
+    def padded(n):
+        v = cat[n]
+        return torch.as_tensor(np.concatenate(
+            [v, np.full(pad, fills.get(n, 0), v.dtype)]), device=mag.device)
+
+    return PdwBatch(
+        count=torch.tensor(total, dtype=torch.int32, device=mag.device),
+        **{n: padded(n) for n in names})
 
 
 def finalize_pdws(

@@ -1,3 +1,6 @@
 """Model layer: end-to-end signal-chain pipelines composed from the DSP core."""
 
-from sdr_channelizer_tpu_torch.models.pipeline import ChannelizerPipeline  # noqa: F401
+from sdr_channelizer_tpu_torch.models.pipeline import (  # noqa: F401
+    ChannelizerPipeline,
+    WidebandPdwPipeline,
+)

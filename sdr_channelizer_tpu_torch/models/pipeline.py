@@ -5,9 +5,17 @@
 capture in, channelized spectra, per-band noise floors and pulse descriptor
 words out.  ``forward_packed`` / ``extract_fused`` are the main path: the
 recorder's integer payload goes to the device as it is on disk and runs
-through the four hand-written kernels.  ``forward`` / ``extract`` are the
-port's own end-to-end oracle over the FFT channelizer and sort-based
-medians.
+through the hand-written kernels; ``forward_fused`` is the same step on two
+sample planes (float payloads).  ``forward`` is the port's own end-to-end
+oracle over the FFT channelizer and sort-based medians, ``forward_planes``
+the complex-free form of it.  ``WidebandPdwPipeline`` is the detector
+without a channelizer (``create_pdws.m``).
+
+Routes of the fused steps: ``"cm2"`` (and ``"auto"``, which means it) is the
+channel-major route with the saturation as a running count; ``"cm"`` the
+channel-major route with the time-major magnitude beside it (the streamed
+block's form, single-shot); ``"flat"`` the time-major streams, flipped by
+the flip kernel in the tail.
 """
 
 from __future__ import annotations
@@ -22,12 +30,30 @@ import torch
 from sdr_channelizer_tpu_torch._device import resolve_device
 from sdr_channelizer_tpu_torch.config import PdwConfig
 from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
-from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer, channelize
+from sdr_channelizer_tpu_torch.dsp.channelizer import (
+    Channelizer,
+    channelize,
+    channelize_planes,
+)
 from sdr_channelizer_tpu_torch.dsp.pdw import PdwBatch
 from sdr_channelizer_tpu_torch.ops import cuda as kernels
 from sdr_channelizer_tpu_torch.ops.medians import median
 
-_UNPORTED_ROUTES = ("cm", "flat", "cm2c", "cm2g")
+ROUTES = ("auto", "cm2", "cm", "flat")
+# A/B knobs of the JAX package's cm2 tail (slot compaction, slot gating):
+# tuning of its statistics kernel for its hardware, with no counterpart here
+_AB_KNOB_ROUTES = ("cm2c", "cm2g")
+
+
+def _check_route(route: str) -> str:
+    if route in _AB_KNOB_ROUTES:
+        raise NotImplementedError(
+            f"route {route!r} is an A/B knob of the JAX package's cm2 tail "
+            f"and does not carry over to sdr_channelizer_tpu_torch; the "
+            f"routes are {ROUTES}")
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; the routes are {ROUTES}")
+    return "cm2" if route == "auto" else route
 
 
 @dataclasses.dataclass
@@ -88,46 +114,106 @@ class ChannelizerPipeline:
                                                 noise_floor=nf)
         return y, nf, batch
 
+    def forward_planes(self, xr, xi):
+        """The oracle step without a complex dtype: float32 sample planes
+        -> (yr, yi (T, M), noise floor (M,), PdwBatch).  The numbers of
+        :meth:`forward` with the DFT extraction."""
+        yr, yi = channelize_planes(xr, xi, self.channelizer,
+                                   device=self.device)
+        mag, ph, sat = pdwmod._prep_streams_planes(
+            yr, yi, self.pdw_cfg.saturation_level)
+        nf = median(mag, dim=0)
+        batch = pdwmod.extract_pdws_channelized_streams(
+            mag, ph, sat, self.pdw_cfg, noise_floor=nf)
+        return yr, yi, nf, batch
+
+    def _fused_tail(self, route: str, front, ops):
+        """Noise floor and extraction behind the channelizer kernel's
+        ``route`` form; ``front(stage)`` runs that form's stage."""
+        cfg = self.pdw_cfg
+        m = self.channelizer.num_bands
+        if route == "cm2":
+            mag_cm, dph_cm, satcs_cm = front("cm2")
+            t_len = mag_cm.shape[1]
+            nf = pdwmod.noise_floor_cm(mag_cm, m, t_len, ops=ops)
+            batch = pdwmod._extract_channelized_cm2(
+                mag_cm, dph_cm, satcs_cm, cfg, nf, t_len, m, ops=ops)
+            return nf, mag_cm, batch
+        if route == "cm":
+            mag, mag_cm, dph_cm, sat_cm = front("cm")
+            nf = median(mag, dim=0)
+            batch = pdwmod.extract_pdws_channelized_streams_cm(
+                mag, mag_cm, dph_cm, sat_cm, cfg, noise_floor=nf, ops=ops)
+            return nf, mag, batch
+        mag, ph, sat = front("flat")
+        nf = median(mag, dim=0)
+        batch = pdwmod.extract_pdws_channelized_streams(
+            mag, ph, sat > 0.5, cfg, noise_floor=nf, stats="pallas", ops=ops)
+        return nf, mag, batch
+
+    def _check_products(self) -> None:
+        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "torch.backends.cuda.matmul.allow_tf32 was switched on: the "
+                "main path needs full-float32 products")
+
+    def _to_device(self, x) -> torch.Tensor:
+        with warnings.catch_warnings():
+            # a payload read from disk may be read-only; it is never written
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.as_tensor(x).to(self.device)
+
     def forward_packed(
-        self, xq, bit_width: int, route: str = "cm2", plain: bool = False,
+        self, xq, bit_width: int, route: str = "auto", plain: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, PdwBatch]:
         """The main path's step on the raw recorder payload.
 
         ``xq`` is the (N, 2) int16 I/Q buffer viewed as one int32 plane, or
         the (N, 2) int8 buffer viewed as one int16 plane: the on-disk bytes
         go to the device untouched, deinterleave and dequantization happen
-        in the channelizer kernel.  Returns ``(noise_floor (M,), mag_cm
-        (M, T), PdwBatch)``.
+        in the channelizer kernel.  Returns ``(noise_floor (M,), mag,
+        PdwBatch)``; ``mag`` is the channel-major (M, T) magnitude on route
+        ``"cm2"`` and the time-major (T, M) one on ``"cm"`` and ``"flat"``.
 
-        ``route``: only ``"cm2"`` (or ``"auto"``, which means it) is
-        ported.  ``plain=True`` runs the kernels' plain PyTorch versions on
-        the same device instead of the kernels, for checking one against
-        the other; nothing takes that path by itself.
+        ``route``: see the module docstring.  ``plain=True`` runs the
+        kernels' plain PyTorch versions on the same device instead of the
+        kernels, for checking one against the other; nothing takes that
+        path by itself.
         """
-        if route in _UNPORTED_ROUTES:
-            raise NotImplementedError(
-                f"route {route!r} is not ported yet: only the 'cm2' route "
-                f"exists in sdr_channelizer_tpu_torch")
-        if route not in ("cm2", "auto"):
-            raise ValueError(f"unknown route {route!r}")
-        if self.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError(
-                "torch.backends.cuda.matmul.allow_tf32 was switched on: the "
-                "main path needs full-float32 products")
+        route = _check_route(route)
+        self._check_products()
         ops = kernels.PLAIN if plain else kernels.KERNELS
-        with warnings.catch_warnings():
-            # a payload read from disk may be read-only; it is never written
-            warnings.simplefilter("ignore", UserWarning)
-            xq = torch.as_tensor(xq).to(self.device)
-        m = self.channelizer.num_bands
-        t_len = xq.shape[-1] // m
-        mag_cm, dph_cm, satcs_cm = ops.channelize(
+        xq = self._to_device(xq)
+        stages = {"cm2": ops.channelize, "cm": ops.channelize_cm,
+                  "flat": ops.channelize_flat}
+        return self._fused_tail(route, lambda stage: stages[stage](
             xq, self.channelizer.taps_rev, bit_width=bit_width,
-            sat_level=self.pdw_cfg.saturation_level)
-        nf = pdwmod.noise_floor_cm(mag_cm, m, t_len, ops=ops)
-        batch = pdwmod._extract_channelized_cm2(
-            mag_cm, dph_cm, satcs_cm, self.pdw_cfg, nf, t_len, m, ops=ops)
-        return nf, mag_cm, batch
+            sat_level=self.pdw_cfg.saturation_level), ops)
+
+    def forward_fused(
+        self, xr, xi, bit_width: int = 0, route: str = "auto",
+        plain: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, PdwBatch]:
+        """:meth:`forward_packed` on two sample planes: int16 raw planes
+        (``bit_width`` set) or float32 normalized ones (``bit_width=0``)."""
+        route = _check_route(route)
+        self._check_products()
+        ops = kernels.PLAIN if plain else kernels.KERNELS
+        xr, xi = self._to_device(xr), self._to_device(xi)
+        stages = {"cm2": ops.channelize_planes, "cm": ops.channelize_cm_planes,
+                  "flat": ops.channelize_flat_planes}
+        return self._fused_tail(route, lambda stage: stages[stage](
+            xr, xi, self.channelizer.taps_rev, bit_width=bit_width,
+            sat_level=self.pdw_cfg.saturation_level), ops)
+
+    def step(self, x):
+        return self.forward(x)
+
+    def step_planes(self, xr, xi):
+        return self.forward_planes(xr, xi)
+
+    def step_fused(self, xr, xi, bit_width: int = 0):
+        return self.forward_fused(xr, xi, bit_width=bit_width)
 
     def _finalize(self, batch: PdwBatch, fs, fc, sample_start_time) -> dict:
         return pdwmod.finalize_pdws(
@@ -147,23 +233,41 @@ class ChannelizerPipeline:
         sample_start_time: float = 0.0,
         plain: bool = False,
     ) -> dict:
-        """Raw (N, 2) integer payload -> host PDW dict via the main path.
+        """Raw (N, 2) payload -> host PDW dict via the main path.
 
         int16 payloads go as the packed int32 plane and int8 payloads as
-        the packed int16 plane (views of the on-disk bytes)."""
+        the packed int16 plane (views of the on-disk bytes); float payloads
+        go as two float32 planes."""
         samples = np.ascontiguousarray(samples)
         if samples.ndim != 2 or samples.shape[1] != 2:
             raise ValueError("samples must be an (N, 2) I/Q payload")
-        if samples.dtype == np.int16:
-            xq = samples.view(np.int32).ravel()
-        elif samples.dtype == np.int8:
-            xq = samples.view(np.int16).ravel()
+        if samples.dtype in (np.int16, np.int8):
+            wide = np.int32 if samples.dtype == np.int16 else np.int16
+            _, _, batch = self.forward_packed(
+                samples.view(wide).ravel(), bit_width=bit_width, plain=plain)
+        elif np.issubdtype(samples.dtype, np.floating):
+            xr = np.ascontiguousarray(samples[:, 0], np.float32)
+            xi = np.ascontiguousarray(samples[:, 1], np.float32)
+            _, _, batch = self.forward_fused(xr, xi, bit_width=bit_width,
+                                             plain=plain)
         else:
-            raise NotImplementedError(
-                f"not ported yet: {samples.dtype} payloads (only int16 and "
-                f"int8 recordings take the packed path)")
-        _, _, batch = self.forward_packed(xq, bit_width=bit_width,
-                                          plain=plain)
+            raise TypeError(f"samples must be int16, int8 or float, got "
+                            f"{samples.dtype}")
+        return self._finalize(batch, fs, fc, sample_start_time)
+
+    def extract_planes(
+        self,
+        iq: np.ndarray,
+        fs: float,
+        fc: float = 0.0,
+        sample_start_time: float = 0.0,
+    ) -> dict:
+        """Host complex capture -> host PDW dict via the complex-free step
+        (the planes are split on the host)."""
+        iq = np.asarray(iq)
+        xr = np.ascontiguousarray(iq.real, np.float32)
+        xi = np.ascontiguousarray(iq.imag, np.float32)
+        _, _, _, batch = self.forward_planes(xr, xi)
         return self._finalize(batch, fs, fc, sample_start_time)
 
     def extract(
@@ -173,8 +277,77 @@ class ChannelizerPipeline:
         fc: float = 0.0,
         sample_start_time: float = 0.0,
     ) -> dict:
-        """Complex capture -> host PDW dict through the oracle step
-        (absolute TOAs in epoch seconds, absolute frequencies with per-bin
-        offsets)."""
+        """Complex capture -> host PDW dict (absolute TOAs in epoch
+        seconds, absolute frequencies with per-bin offsets).
+
+        On the card this is the fused step on the capture's two float32
+        planes (:meth:`extract_fused`), as in the JAX package off the CPU;
+        on the CPU it is the oracle step over the FFT channelizer.  The two
+        agree to the last place of a float32."""
+        if self.device.type == "cuda":
+            iq = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+                else np.asarray(x)
+            samples = np.stack([iq.real, iq.imag], -1).astype(np.float32)
+            return self.extract_fused(samples, bit_width=0, fs=fs, fc=fc,
+                                      sample_start_time=sample_start_time)
         _, _, batch = self.forward(x)
         return self._finalize(batch, fs, fc, sample_start_time)
+
+
+@dataclasses.dataclass
+class WidebandPdwPipeline:
+    """Full-rate PDW extraction, no channelizer (``create_pdws.m``): the
+    noise floor is the median magnitude of the whole capture, 18 dB leading
+    / 3 dB trailing hysteresis by default.
+
+    ``device`` as in :class:`ChannelizerPipeline`: the CUDA device unless the
+    caller asked for ``"cpu"``.  On the card the extraction takes the kernel
+    tail (the time-major latch, the flip kernel and the statistics kernel at
+    one channel; block by block from 2^24 samples on), on the CPU the oracle
+    tail.
+    """
+
+    pdw_cfg: PdwConfig = dataclasses.field(default_factory=PdwConfig.wideband)
+    device: Optional[Union[str, torch.device]] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    @classmethod
+    def from_reference(
+        cls,
+        pdw_cfg: dict,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "WidebandPdwPipeline":
+        """Build the pipeline from the ``PdwConfig`` fields handed over as a
+        dict (``dataclasses.asdict``); wideband extraction has no weights."""
+        return cls(pdw_cfg=PdwConfig(**pdw_cfg), device=device)
+
+    def forward(self, x,
+                plain: bool = False) -> Tuple[torch.Tensor, PdwBatch]:
+        """Complex capture -> (noise floor, PdwBatch).  ``plain=True`` runs
+        the kernels' plain PyTorch versions on the same device, for checking
+        one against the other."""
+        x = torch.as_tensor(x).to(device=self.device, dtype=torch.complex64)
+        mag, ph, sat = pdwmod._prep_streams(x, self.pdw_cfg.saturation_level)
+        nf = median(mag)
+        batch = pdwmod._extract_wideband_from_streams(
+            mag, ph, sat, self.pdw_cfg, nf,
+            ops=kernels.PLAIN if plain else kernels.KERNELS)
+        return nf, batch
+
+    def step(self, x) -> Tuple[torch.Tensor, PdwBatch]:
+        return self.forward(x)
+
+    def extract(
+        self,
+        x,
+        fs: float,
+        fc: float = 0.0,
+        sample_start_time: float = 0.0,
+        plain: bool = False,
+    ) -> dict:
+        """Complex capture -> host PDW dict."""
+        _, batch = self.forward(x, plain=plain)
+        return pdwmod.finalize_pdws(batch, fs=fs, fc=fc,
+                                    sample_start_time=sample_start_time)

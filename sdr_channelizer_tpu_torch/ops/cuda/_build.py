@@ -24,7 +24,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
-KERNEL_SOURCES = ("channelizer", "noise_floor", "latch", "pulse_stats")
+KERNEL_SOURCES = ("channelizer", "noise_floor", "latch", "pulse_stats",
+                  "transpose")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,22 +1,31 @@
-"""Kernel K1 and its cm mode: packed capture -> detection streams.
+"""The channelizer kernel in its four forms: capture -> detection streams,
+or the complex bands.
 
-The counterparts of ``pallas_channelize_streams_packed_cm2`` and
-``pallas_channelize_streams_packed_cm`` of the JAX package: sign-extend and
-dequantize the packed (I, Q) pairs, the polyphase branch FIR over the
-``history`` frames of the previous block (zeros by default), the
-shift-folded DFT in full float32, then the channel-major streams of the PDW
-front end.  The cm2 form gives the saturation as a cumulative count; the cm
-form gives it as a 0/1 mask and adds the time-major magnitude that the
-streamed noise floor and the time-major latch read.
+The counterparts of ``pallas_channelize_streams[_packed]_cm2``,
+``pallas_channelize_streams[_packed]_cm``,
+``pallas_channelize_streams[_packed]`` and ``pallas_channelize`` of the JAX
+package: sign-extend and dequantize the samples, the polyphase branch FIR
+over the ``history`` frames of the previous block (zeros by default), the
+shift-folded DFT in full float32, then one of four outputs.  The cm2 form
+gives the channel-major streams of the PDW front end with the saturation as
+a cumulative count; the cm form gives it as a 0/1 mask and adds the
+time-major magnitude that the streamed noise floor and the time-major latch
+read; the flat form gives the time-major magnitude, phase in degrees and 0/1
+mask; the complex form gives the bands themselves.
 
-``channelize_streams_packed_cm2`` / ``channelize_streams_packed_cm`` launch
-the CUDA kernel (``csrc/channelizer.cu``, one body for both) for a CUDA
-tensor, or raise; for a CPU tensor they take their ``_plain`` versions, the
-plain PyTorch form of the same functions.
+The capture comes as packed pairs (``*_packed*``: one int32 holding an int16
+(I, Q) pair, or one int16 holding an int8 pair: the recorder's bytes as they
+are on disk) or as two planes (int16, dequantized by ``bit_width``, or
+float32 with ``bit_width=0``).
+
+Every wrapper launches the CUDA kernel (``csrc/channelizer.cu``, one body
+for all forms and ingests) for CUDA tensors, or raises; for CPU tensors it
+takes its ``_plain`` version, the plain PyTorch form of the same function.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -24,10 +33,15 @@ import torch
 
 from sdr_channelizer_tpu_torch.ops.cuda import _build
 
-launches = 0     # times channelize_streams_packed_cm2 launched its kernel
-launches_cm = 0  # times channelize_streams_packed_cm launched its kernel
+# times the kernel was launched in each form (either ingest)
+launches = 0          # cm2: channelize_streams[_packed]_cm2
+launches_cm = 0       # cm: channelize_streams[_packed]_cm
+launches_flat = 0     # flat: channelize_streams[_packed]
+launches_complex = 0  # complex: channelize_complex[_planes]
 
-_PACKED = {torch.int32: 4, torch.int16: 2}
+_MODE_CM2, _MODE_CM, _MODE_FLAT, _MODE_COMPLEX = range(4)
+_PACKED = {torch.int32: 0, torch.int16: 1}   # dtype -> ingest code
+_PLANES = {torch.int16: 2, torch.float32: 3}
 _TILE_FRAMES = (64, 32, 16, 8, 4)
 _SMEM_TARGET = 100 * 1024   # two blocks a multiprocessor
 _SMEM_MAX = 227 * 1024      # what one block may use on sm_90
@@ -97,31 +111,100 @@ def atan2_cephes(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where((y == 0) & (x == 0), torch.zeros_like(ang), ang)
 
 
-def channelize_planes_plain(xq: torch.Tensor, taps_rev, bit_width: int,
-                            shift: bool = True,
-                            history: Optional[torch.Tensor] = None,
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (T, M) real and imaginary planes of the channelizer output, from
-    the packed capture, in plain PyTorch (matmul in full float32)."""
+@dataclasses.dataclass
+class _Source:
+    """A capture as the kernel reads it: ``x0`` the packed plane or the I
+    plane, ``x1`` the Q plane or None, ``h0`` / ``h1`` the (P-1) * M samples
+    before the block (or None), ``stride`` the element stride of a plane in
+    memory (2 for the planes of a complex64 capture read in place)."""
+
+    ingest: int
+    x0: torch.Tensor
+    x1: Optional[torch.Tensor]
+    h0: Optional[torch.Tensor]
+    h1: Optional[torch.Tensor]
+    stride: int
+    scale: float
+    p: int
+    m: int
+    t_len: int
+
+    @property
+    def device(self):
+        return self.x0.device
+
+    def floats(self):
+        """``(vi, vq, hi, hq)``: the dequantized (t_len, M) frames and the
+        (P-1, M) history frames (or None, None), float32."""
+        n = self.t_len * self.m
+        if self.x1 is None:
+            vi, vq = unpack_pairs(self.x0[:n])
+            hi, hq = (None, None) if self.h0 is None else unpack_pairs(self.h0)
+        else:
+            vi, vq = (v[:n].to(torch.float32) for v in (self.x0, self.x1))
+            hi, hq = (None if h is None else h.to(torch.float32)
+                      for h in (self.h0, self.h1))
+
+        def frames(v, rows):
+            return None if v is None else (v * self.scale).reshape(rows, self.m)
+
+        return (frames(vi, self.t_len), frames(vq, self.t_len),
+                frames(hi, self.p - 1), frames(hq, self.p - 1))
+
+
+def _packed_source(xq, taps_rev, bit_width, history) -> _Source:
+    p, m, t_len = _check_args(xq, taps_rev)
+    return _Source(_PACKED[xq.dtype], xq, None,
+                   _check_history(history, xq, p, m), None, 1,
+                   float(2.0 ** -(bit_width - 1)), p, m, t_len)
+
+
+def _planes_source(xr, xi, taps_rev, bit_width, history) -> _Source:
+    if xr.dtype not in _PLANES or xi.dtype != xr.dtype:
+        raise TypeError(
+            f"xr and xi must both be int16 or float32 planes, got {xr.dtype} "
+            f"and {xi.dtype}")
+    if xr.ndim != 1 or xr.shape != xi.shape or xr.device != xi.device \
+            or not (xr.is_contiguous() and xi.is_contiguous()):
+        raise ValueError("xr and xi must be contiguous 1-D planes of one "
+                         "length on one device")
+    p, m = taps_rev.shape
+    h0 = h1 = None
+    if history is not None:
+        h0, h1 = (_check_history(h, xr, p, m) for h in history)
+    scale = float(2.0 ** -(bit_width - 1)) if bit_width else 1.0
+    return _Source(_PLANES[xr.dtype], xr, xi, h0, h1, 1, scale, p, m,
+                   xr.shape[0] // m)
+
+
+def _complex_source(x, taps_rev) -> _Source:
+    """A complex64 capture read in place as two float32 planes of stride 2."""
+    if x.dtype != torch.complex64 or x.ndim != 1 or not x.is_contiguous():
+        raise TypeError("x must be a contiguous 1-D complex64 tensor")
+    p, m = taps_rev.shape
+    pairs = torch.view_as_real(x)
+    return _Source(_PLANES[torch.float32], pairs[:, 0], pairs[:, 1], None,
+                   None, 2, 1.0, p, m, x.shape[0] // m)
+
+
+def _planes_plain(src: _Source, taps_rev, shift: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (T, M) real and imaginary planes of the channelizer output in
+    plain PyTorch (matmul in full float32)."""
     from sdr_channelizer_tpu_torch.dsp.channelizer import (
         dft_matrix,
         fir_branches,
     )
 
-    p, m, t_len = _check_args(xq, taps_rev)
-    scale = float(2.0 ** -(bit_width - 1))
-    vi, vq = unpack_pairs(xq[: t_len * m])
-    taps = torch.as_tensor(np.asarray(taps_rev, np.float32), device=xq.device)
-    hist = _check_history(history, xq, p, m)
-    hi = hq = None
-    if hist is not None:
-        hi, hq = ((h * scale).reshape(p - 1, m) for h in unpack_pairs(hist))
-    ur = fir_branches((vi * scale).reshape(t_len, m), taps, hi)
-    ui = fir_branches((vq * scale).reshape(t_len, m), taps, hq)
-    w = dft_matrix(m, shifted=shift)
-    wr = torch.as_tensor(np.ascontiguousarray(w.real), device=xq.device)
-    wi = torch.as_tensor(np.ascontiguousarray(w.imag), device=xq.device)
-    if xq.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+    dev = src.device
+    vi, vq, hi, hq = src.floats()
+    taps = torch.as_tensor(np.asarray(taps_rev, np.float32), device=dev)
+    ur = fir_branches(vi, taps, hi)
+    ui = fir_branches(vq, taps, hq)
+    w = dft_matrix(src.m, shifted=shift)
+    wr = torch.as_tensor(np.ascontiguousarray(w.real), device=dev)
+    wi = torch.as_tensor(np.ascontiguousarray(w.imag), device=dev)
+    if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the plain version needs full-float32 products: "
                            "torch.backends.cuda.matmul.allow_tf32 is on")
     yr = ur @ wr - ui @ wi
@@ -129,18 +212,46 @@ def channelize_planes_plain(xq: torch.Tensor, taps_rev, bit_width: int,
     return yr, yi
 
 
-def _streams_plain(xq, taps_rev, bit_width, sat_level, shift, history):
-    """Time-major (T, M) ``(mag, dph, sat)`` shared by both plain forms."""
-    yr, yi = channelize_planes_plain(xq, taps_rev, bit_width, shift, history)
-    t_len, m = yr.shape
+def channelize_planes_plain(xq: torch.Tensor, taps_rev, bit_width: int,
+                            shift: bool = True,
+                            history: Optional[torch.Tensor] = None,
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (T, M) real and imaginary planes of the channelizer output, from
+    the packed capture, in plain PyTorch (matmul in full float32)."""
+    return _planes_plain(_packed_source(xq, taps_rev, bit_width, history),
+                         taps_rev, shift)
+
+
+def _flat_plain(src, taps_rev, sat_level, shift):
+    """Time-major (T, M) ``(mag, phase_deg, sat)``: the flat form."""
+    yr, yi = _planes_plain(src, taps_rev, shift)
     mag = torch.sqrt(yr * yr + yi * yi)
     ph = atan2_cephes(yi, yr) * float(np.float32(180.0 / np.pi))
     sat = ((yr.abs() >= sat_level) | (yi.abs() >= sat_level)).to(torch.float32)
+    return mag, ph, sat
+
+
+def _cm_plain(src, taps_rev, sat_level, shift):
+    """Time-major (T, M) ``(mag, dph, sat)`` shared by the cm and cm2 plain
+    forms."""
+    mag, ph, sat = _flat_plain(src, taps_rev, sat_level, shift)
+    t_len, m = mag.shape
     d = ph[1:] - ph[:-1]
     d = torch.where(d < -180.0, d + 360.0, d)
     d = torch.where(d > 180.0, d - 360.0, d)  # strict: exactly +-180 stays
     dph = torch.cat([d, d.new_zeros((min(t_len, 1), m))], dim=0)
     return mag, dph, sat
+
+
+def _cm2_outputs_plain(src, taps_rev, sat_level, shift):
+    mag, dph, sat = _cm_plain(src, taps_rev, sat_level, shift)
+    return (mag.T.contiguous(), dph.T.contiguous(),
+            torch.cumsum(sat, dim=0).T.contiguous())
+
+
+def _cm_outputs_plain(src, taps_rev, sat_level, shift):
+    mag, dph, sat = _cm_plain(src, taps_rev, sat_level, shift)
+    return (mag, mag.T.contiguous(), dph.T.contiguous(), sat.T.contiguous())
 
 
 def channelize_streams_packed_cm2_plain(
@@ -152,10 +263,9 @@ def channelize_streams_packed_cm2_plain(
     history: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`channelize_streams_packed_cm2`."""
-    mag, dph, sat = _streams_plain(xq, taps_rev, bit_width, sat_level, shift,
-                                   history)
-    return (mag.T.contiguous(), dph.T.contiguous(),
-            torch.cumsum(sat, dim=0).T.contiguous())
+    return _cm2_outputs_plain(
+        _packed_source(xq, taps_rev, bit_width, history), taps_rev, sat_level,
+        shift)
 
 
 def channelize_streams_packed_cm_plain(
@@ -167,15 +277,70 @@ def channelize_streams_packed_cm_plain(
     history: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`channelize_streams_packed_cm`."""
-    mag, dph, sat = _streams_plain(xq, taps_rev, bit_width, sat_level, shift,
-                                   history)
-    return (mag, mag.T.contiguous(), dph.T.contiguous(), sat.T.contiguous())
+    return _cm_outputs_plain(
+        _packed_source(xq, taps_rev, bit_width, history), taps_rev, sat_level,
+        shift)
+
+
+def channelize_streams_packed_plain(
+    xq: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 12,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    history: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`channelize_streams_packed`."""
+    return _flat_plain(_packed_source(xq, taps_rev, bit_width, history),
+                       taps_rev, sat_level, shift)
+
+
+def channelize_streams_plain(xr, xi, taps_rev, bit_width: int = 0,
+                             sat_level: float = 0.9999, shift: bool = True,
+                             history=None):
+    """Plain PyTorch version of :func:`channelize_streams`."""
+    return _flat_plain(_planes_source(xr, xi, taps_rev, bit_width, history),
+                       taps_rev, sat_level, shift)
+
+
+def channelize_streams_cm_plain(xr, xi, taps_rev, bit_width: int = 0,
+                                sat_level: float = 0.9999, shift: bool = True,
+                                history=None):
+    """Plain PyTorch version of :func:`channelize_streams_cm`."""
+    return _cm_outputs_plain(
+        _planes_source(xr, xi, taps_rev, bit_width, history), taps_rev,
+        sat_level, shift)
+
+
+def channelize_streams_cm2_plain(xr, xi, taps_rev, bit_width: int = 0,
+                                 sat_level: float = 0.9999, shift: bool = True,
+                                 history=None):
+    """Plain PyTorch version of :func:`channelize_streams_cm2`."""
+    return _cm2_outputs_plain(
+        _planes_source(xr, xi, taps_rev, bit_width, history), taps_rev,
+        sat_level, shift)
+
+
+def channelize_complex_plain(x: torch.Tensor, taps_rev,
+                             shift: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`channelize_complex`: the four real
+    products of ``channelize(method="dft")``."""
+    yr, yi = _planes_plain(_complex_source(x, taps_rev), taps_rev, shift)
+    return torch.complex(yr, yi)
+
+
+def channelize_complex_planes_plain(xr, xi, taps_rev,
+                                    shift: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`channelize_complex_planes`."""
+    yr, yi = _planes_plain(_planes_source(xr, xi, taps_rev, 0, None),
+                           taps_rev, shift)
+    return torch.complex(yr, yi)
 
 
 def _tile_frames(lib, m: int, p: int) -> int:
     for cap in (_SMEM_TARGET, _SMEM_MAX):
         for ft in _TILE_FRAMES:
-            if lib.sdr_channelize_cm2_smem(m, p, ft) <= cap:
+            if lib.sdr_channelize_smem(m, p, ft) <= cap:
                 return ft
     raise ValueError(
         f"channelizer kernel: M={m} bands with P={p} taps per band do not fit "
@@ -209,32 +374,107 @@ def _library():
     lib = _build.load("channelizer")
     if not getattr(lib, "_sdr_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdr_channelize_cm2.argtypes = [
-            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf,
-            cf, vp]
-        lib.sdr_channelize_cm2.restype = ci
-        lib.sdr_channelize_cm.argtypes = [
-            vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf,
-            cf, vp]
-        lib.sdr_channelize_cm.restype = ci
-        lib.sdr_channelize_cm2_smem.argtypes = [ci, ci, ci]
-        lib.sdr_channelize_cm2_smem.restype = ctypes.c_longlong
+        lib.sdr_channelize.argtypes = (
+            [ci, ci] + [vp] * 4 + [ci] + [vp] * 10 + [ci] * 5 + [cf, cf, vp])
+        lib.sdr_channelize.restype = ci
+        lib.sdr_channelize_smem.argtypes = [ci, ci, ci]
+        lib.sdr_channelize_smem.restype = ctypes.c_longlong
         lib._sdr_typed = True
     return lib
 
 
-def _launch_plan(xq, taps_rev, shift, tile_frames):
-    """What both kernel forms share before the launch: the library, the
-    weights on the device and the tile length."""
-    p, m, t_len = _check_args(xq, taps_rev)
-    mp = (m + 3) // 4 * 4
-    weights = _device_weights(taps_rev, shift, xq.device, mp)
+def _tile(src: _Source, tile_frames: Optional[int]) -> int:
+    """The tile length in frames: the caller's, checked, or the longest that
+    leaves room for two blocks a multiprocessor."""
     lib = _library()
-    ft = tile_frames or _tile_frames(lib, m, p)
-    if ft % 4 or lib.sdr_channelize_cm2_smem(m, p, ft) > _SMEM_MAX:
+    ft = tile_frames or _tile_frames(lib, src.m, src.p)
+    if ft % 4 or lib.sdr_channelize_smem(src.m, src.p, ft) > _SMEM_MAX:
         raise ValueError(f"tile_frames={ft} must be a multiple of 4 that fits "
                          f"shared memory")
-    return lib, weights, mp, ft
+    return ft
+
+
+def _launch(mode: int, src: _Source, taps_rev, shift, ft: int, outs,
+            sat_level: float = 0.0, tile_tot=None) -> None:
+    """Launch the kernel in ``mode`` on ``src`` with tiles of ``ft`` frames.
+    ``outs``: the six output tensors in the kernel's order (time-major
+    first, then channel-major), None where the mode writes none."""
+    p, m, t_len = src.p, src.m, src.t_len
+    dev = src.device
+    mp = (m + 3) // 4 * 4
+    taps_d, wr_d, wi_d = _device_weights(taps_rev, shift, dev, mp)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        code = _library().sdr_channelize(
+            mode, src.ingest, ptr(src.x0), ptr(src.x1), ptr(src.h0),
+            ptr(src.h1), src.stride, taps_d.data_ptr(), wr_d.data_ptr(),
+            wi_d.data_ptr(), *(ptr(o) for o in outs), ptr(tile_tot), m, mp, p,
+            t_len, ft, src.scale, float(sat_level),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(code, f"sdr_channelize (mode {mode})")
+
+
+def _run_cm2(src, taps_rev, sat_level, shift, tile_frames):
+    global launches
+    if src.t_len >= 1 << 24:
+        raise ValueError("satcs_cm counts are float32: t_len must be < 2^24")
+    dev = src.device
+    mag = torch.empty((src.m, src.t_len), dtype=torch.float32, device=dev)
+    dph = torch.empty_like(mag)
+    satcs = torch.empty_like(mag)
+    if src.t_len == 0:
+        return mag, dph, satcs
+    ft = _tile(src, tile_frames)
+    tile_tot = torch.empty((src.m, (src.t_len + ft - 1) // ft),
+                           dtype=torch.int32, device=dev)
+    _launch(_MODE_CM2, src, taps_rev, shift, ft,
+            (None, None, None, mag, dph, satcs), sat_level, tile_tot)
+    launches += 1
+    return mag, dph, satcs
+
+
+def _run_cm(src, taps_rev, sat_level, shift, tile_frames):
+    global launches_cm
+    dev = src.device
+    mag_tm = torch.empty((src.t_len, src.m), dtype=torch.float32, device=dev)
+    mag = torch.empty((src.m, src.t_len), dtype=torch.float32, device=dev)
+    dph = torch.empty_like(mag)
+    sat = torch.empty_like(mag)
+    if src.t_len == 0:
+        return mag_tm, mag, dph, sat
+    _launch(_MODE_CM, src, taps_rev, shift, _tile(src, tile_frames),
+            (mag_tm, None, None, mag, dph, sat), sat_level)
+    launches_cm += 1
+    return mag_tm, mag, dph, sat
+
+
+def _run_flat(src, taps_rev, sat_level, shift, tile_frames):
+    global launches_flat
+    mag = torch.empty((src.t_len, src.m), dtype=torch.float32,
+                      device=src.device)
+    ph = torch.empty_like(mag)
+    sat = torch.empty_like(mag)
+    if src.t_len == 0:
+        return mag, ph, sat
+    _launch(_MODE_FLAT, src, taps_rev, shift, _tile(src, tile_frames),
+            (mag, ph, sat, None, None, None), sat_level)
+    launches_flat += 1
+    return mag, ph, sat
+
+
+def _run_complex(src, taps_rev, shift, tile_frames):
+    global launches_complex
+    y = torch.empty((src.t_len, src.m), dtype=torch.complex64,
+                    device=src.device)
+    if src.t_len == 0:
+        return y
+    _launch(_MODE_COMPLEX, src, taps_rev, shift, _tile(src, tile_frames),
+            (y, None, None, None, None, None))
+    launches_complex += 1
+    return y
 
 
 def channelize_streams_packed_cm2(
@@ -264,35 +504,10 @@ def channelize_streams_packed_cm2(
     axis rounded up to its block).  The DFT is computed with plain float32
     fused multiply-adds, never TF32.
     """
-    global launches
-    p, m, t_len = _check_args(xq, taps_rev)
-    hist = _check_history(history, xq, p, m)
+    src = _packed_source(xq, taps_rev, bit_width, history)
     if not xq.is_cuda:
-        return channelize_streams_packed_cm2_plain(
-            xq, taps_rev, bit_width, sat_level, shift, hist)
-    if t_len >= 1 << 24:
-        raise ValueError("satcs_cm counts are float32: t_len must be < 2^24")
-    dev = xq.device
-    mag = torch.empty((m, t_len), dtype=torch.float32, device=dev)
-    dph = torch.empty_like(mag)
-    satcs = torch.empty_like(mag)
-    if t_len == 0:
-        return mag, dph, satcs
-    lib, (taps_d, wr_d, wi_d), mp, ft = _launch_plan(xq, taps_rev, shift,
-                                                     tile_frames)
-    n_tiles = (t_len + ft - 1) // ft
-    tile_tot = torch.empty((m, n_tiles), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.sdr_channelize_cm2(
-            xq.data_ptr(), _PACKED[xq.dtype],
-            None if hist is None else hist.data_ptr(), taps_d.data_ptr(),
-            wr_d.data_ptr(), wi_d.data_ptr(), mag.data_ptr(), dph.data_ptr(),
-            satcs.data_ptr(), tile_tot.data_ptr(), m, mp, p, t_len, ft,
-            float(2.0 ** -(bit_width - 1)), float(sat_level),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(code, "sdr_channelize_cm2")
-    launches += 1
-    return mag, dph, satcs
+        return _cm2_outputs_plain(src, taps_rev, sat_level, shift)
+    return _run_cm2(src, taps_rev, sat_level, shift, tile_frames)
 
 
 def channelize_streams_packed_cm(
@@ -313,29 +528,122 @@ def channelize_streams_packed_cm(
     of samples with ``|Re| >= sat_level`` or ``|Im| >= sat_level``, not a
     count.  Arguments as there.
     """
-    global launches_cm
-    p, m, t_len = _check_args(xq, taps_rev)
-    hist = _check_history(history, xq, p, m)
+    src = _packed_source(xq, taps_rev, bit_width, history)
     if not xq.is_cuda:
-        return channelize_streams_packed_cm_plain(
-            xq, taps_rev, bit_width, sat_level, shift, hist)
-    dev = xq.device
-    mag_tm = torch.empty((t_len, m), dtype=torch.float32, device=dev)
-    mag = torch.empty((m, t_len), dtype=torch.float32, device=dev)
-    dph = torch.empty_like(mag)
-    sat = torch.empty_like(mag)
-    if t_len == 0:
-        return mag_tm, mag, dph, sat
-    lib, (taps_d, wr_d, wi_d), mp, ft = _launch_plan(xq, taps_rev, shift,
-                                                     tile_frames)
-    with torch.cuda.device(dev):
-        code = lib.sdr_channelize_cm(
-            xq.data_ptr(), _PACKED[xq.dtype],
-            None if hist is None else hist.data_ptr(), taps_d.data_ptr(),
-            wr_d.data_ptr(), wi_d.data_ptr(), mag_tm.data_ptr(),
-            mag.data_ptr(), dph.data_ptr(), sat.data_ptr(), m, mp, p, t_len,
-            ft, float(2.0 ** -(bit_width - 1)), float(sat_level),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(code, "sdr_channelize_cm")
-    launches_cm += 1
-    return mag_tm, mag, dph, sat
+        return _cm_outputs_plain(src, taps_rev, sat_level, shift)
+    return _run_cm(src, taps_rev, sat_level, shift, tile_frames)
+
+
+def channelize_streams_packed(
+    xq: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 12,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    tile_frames: Optional[int] = None,
+    history: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Packed ingest -> time-major ``(mag, phase_deg, sat)``, each
+    (t_len, M) f32: the flat form.
+
+    ``mag = |y|``, the same bits as the time-major magnitude of
+    :func:`channelize_streams_packed_cm`; ``phase_deg`` the phase itself in
+    degrees (the Cephes polynomial of :func:`atan2_cephes`), not its
+    difference; ``sat`` the 0/1 mask of samples with ``|Re| >= sat_level`` or
+    ``|Im| >= sat_level``.  Arguments as
+    :func:`channelize_streams_packed_cm2`.
+    """
+    src = _packed_source(xq, taps_rev, bit_width, history)
+    if not xq.is_cuda:
+        return _flat_plain(src, taps_rev, sat_level, shift)
+    return _run_flat(src, taps_rev, sat_level, shift, tile_frames)
+
+
+def channelize_streams(
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 0,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    tile_frames: Optional[int] = None,
+    history: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Planes ingest of :func:`channelize_streams_packed`.
+
+    ``xr``, ``xi``: 1-D planes, int16 raw payloads (``bit_width`` set, for
+    the dequantization by ``2^-(bit_width-1)``) or float32 already
+    normalized (``bit_width=0``).  ``history``: the ``(hist_r, hist_i)``
+    pair of (P-1, M) frames before the block, in the planes' dtype."""
+    src = _planes_source(xr, xi, taps_rev, bit_width, history)
+    if not xr.is_cuda:
+        return _flat_plain(src, taps_rev, sat_level, shift)
+    return _run_flat(src, taps_rev, sat_level, shift, tile_frames)
+
+
+def channelize_streams_cm(
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 0,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    tile_frames: Optional[int] = None,
+    history: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Planes ingest of :func:`channelize_streams_packed_cm`; planes and
+    ``history`` as :func:`channelize_streams`."""
+    src = _planes_source(xr, xi, taps_rev, bit_width, history)
+    if not xr.is_cuda:
+        return _cm_outputs_plain(src, taps_rev, sat_level, shift)
+    return _run_cm(src, taps_rev, sat_level, shift, tile_frames)
+
+
+def channelize_streams_cm2(
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    taps_rev: np.ndarray,
+    bit_width: int = 0,
+    sat_level: float = 0.9999,
+    shift: bool = True,
+    tile_frames: Optional[int] = None,
+    history: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Planes ingest of :func:`channelize_streams_packed_cm2`; planes and
+    ``history`` as :func:`channelize_streams`."""
+    src = _planes_source(xr, xi, taps_rev, bit_width, history)
+    if not xr.is_cuda:
+        return _cm2_outputs_plain(src, taps_rev, sat_level, shift)
+    return _run_cm2(src, taps_rev, sat_level, shift, tile_frames)
+
+
+def channelize_complex(
+    x: torch.Tensor,
+    taps_rev: np.ndarray,
+    shift: bool = True,
+    tile_frames: Optional[int] = None,
+) -> torch.Tensor:
+    """Channelize a 1-D complex64 capture: ``(len(x) // M, M)`` complex64,
+    equal to ``channelize(x, chan, method="dft")`` for ``taps_rev =
+    chan.taps_rev``.  The capture is read in place, as two float32 planes
+    of stride 2; the four real products of the DFT run in the kernel."""
+    src = _complex_source(x, taps_rev)
+    if not x.is_cuda:
+        return torch.complex(*_planes_plain(src, taps_rev, shift))
+    return _run_complex(src, taps_rev, shift, tile_frames)
+
+
+def channelize_complex_planes(
+    xr: torch.Tensor,
+    xi: torch.Tensor,
+    taps_rev: np.ndarray,
+    shift: bool = True,
+    tile_frames: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`channelize_complex` from two float32 planes."""
+    if xr.dtype != torch.float32:
+        raise TypeError("xr and xi must be float32 planes")
+    src = _planes_source(xr, xi, taps_rev, 0, None)
+    if not xr.is_cuda:
+        return torch.complex(*_planes_plain(src, taps_rev, shift))
+    return _run_complex(src, taps_rev, shift, tile_frames)

@@ -1,21 +1,28 @@
-// Fused packed-ingest channelizer -> channel-major detection streams.
+// Fused channelizer: capture -> detection streams, or the complex bands.
 //
-// Replaces the TPU kernel `_streams_kernel` in its cm2 and cm modes
-// (sdr_channelizer_tpu/ops/pallas/channelizer_kernel.py, reached through
-// `pallas_channelize_streams_packed_cm2` and
-// `pallas_channelize_streams_packed_cm`).
+// Replaces the TPU kernels `_streams_kernel` in its cm2, cm and flat modes
+// and `_kernel` (sdr_channelizer_tpu/ops/pallas/channelizer_kernel.py,
+// reached through `pallas_channelize_streams[_packed]_cm2`,
+// `pallas_channelize_streams[_packed]_cm`,
+// `pallas_channelize_streams[_packed]` and `pallas_channelize`).
 //
-// What it computes, per frame t of M packed (I, Q) samples: sign-extend and
+// What it computes, per frame t of M (I, Q) samples: sign-extend and
 // dequantize by `scale`; the P-tap polyphase branch FIR over the P-1 frames
-// before the block (`hist`, the packed tail of the previous block, or zeros);
-// the shift-folded M-point DFT as four real float32 products; then,
-// channel-major (M, T): |y|, the wrapped phase difference to the next frame
-// in degrees (zero from column T-1 on) and the saturation stream.  In cm2
-// mode that stream is the inclusive per-channel cumulative count of
-// saturated samples.  In cm mode it is the 0/1 mask itself, and |y| is also
-// written time-major (T, M).  Both modes are one kernel body: the FIR, the
-// DFT and their order of operations are shared, so |y| and the phase of a
-// frame are the same bits whichever mode computed them.
+// before the block (`hist`, the tail of the previous block, or zeros); the
+// shift-folded M-point DFT as four real float32 products; then one of four
+// epilogues.  cm2 and cm, channel-major (M, T): |y|, the wrapped phase
+// difference to the next frame in degrees (zero from column T-1 on) and the
+// saturation stream.  In cm2 mode that stream is the inclusive per-channel
+// cumulative count of saturated samples.  In cm mode it is the 0/1 mask
+// itself, and |y| is also written time-major (T, M).  flat, time-major
+// (T, M): |y|, the phase itself in degrees and the 0/1 mask.  complex: y
+// itself, (T, M) interleaved (re, im).  All modes are one kernel body: the
+// FIR, the DFT and their order of operations are shared, so |y| and the
+// phase of a frame are the same bits whichever mode computed them.  The
+// ingest is a second template parameter of that body: packed pairs (one
+// int32 holding an int16 (I, Q) pair, or one int16 holding an int8 pair), or
+// two planes (int16 or float32, with an element stride, so that a complex64
+// capture is read in place as planes of stride 2).
 //
 // What bounds it on an H100: the DFT.  Per frame it is 4*M*M fused
 // multiply-adds against 4*M bytes read and 12*M bytes written, so at M = 64
@@ -45,7 +52,10 @@
 // costs nothing there).  The ragged last tile and any M are masked; nothing
 // is padded to a lane width.  The cm mode needs no count, so none of the
 // two small kernels runs there; its time-major |y| leaves shared memory with
-// the channel index fastest, which is again coalesced.
+// the channel index fastest, which is again coalesced.  The flat and complex
+// modes need no look-ahead frame and no step 4 transposition: their tile
+// leaves shared memory time-major the same way, and the complex mode skips
+// the stream math and stores (re, im) as one float2.
 
 #include "common.cuh"
 
@@ -96,6 +106,45 @@ __device__ __forceinline__ void unpack(int16_t v, float& i, float& q) {
   q = (float)(w >> 8);            // high byte = Q
 }
 
+// Packed pairs: element g is sample g; `hist` holds the (P-1) * M samples
+// before the block, or is null.
+template <typename T>
+struct PackedIn {
+  const T* x;
+  const T* hist;
+  __device__ __forceinline__ bool has_hist() const { return hist != nullptr; }
+  __device__ __forceinline__ void load(long long g, float& i, float& q) const {
+    unpack(x[g], i, q);
+  }
+  __device__ __forceinline__ void load_hist(long long g, float& i,
+                                            float& q) const {
+    unpack(hist[g], i, q);
+  }
+};
+
+// Two planes, sample g at element g * stride of each; the history planes
+// are dense.
+template <typename T>
+struct PlanesIn {
+  const T* xr;
+  const T* xi;
+  const T* hr;
+  const T* hi;
+  int stride;
+  __device__ __forceinline__ bool has_hist() const { return hr != nullptr; }
+  __device__ __forceinline__ void load(long long g, float& i, float& q) const {
+    i = (float)xr[g * stride];
+    q = (float)xi[g * stride];
+  }
+  __device__ __forceinline__ void load_hist(long long g, float& i,
+                                            float& q) const {
+    i = (float)hr[g];
+    q = (float)hi[g];
+  }
+};
+
+enum Mode { kCm2 = 0, kCm = 1, kFlat = 2, kComplex = 3 };
+
 struct Smem {
   int off_b;    // floats before U
   int us;       // U row stride (frames, multiple of 4)
@@ -113,23 +162,26 @@ __host__ __device__ inline Smem smem_layout(int M, int P, int FT) {
   return s;
 }
 
-// kCm = false: cm2 mode (sat_out = cumulative count inside the tile,
-// tile_tot written, mag_tm unused).  kCm = true: cm mode (sat_out = 0/1
-// mask, mag_tm written, tile_tot unused).
-template <typename PackedT, bool kCm>
+// kCm2: sat_out = cumulative count inside the tile, tile_tot written, tm0-2
+// unused.  kCm: sat_out = 0/1 mask, tm0 = time-major |y|, tile_tot unused.
+// kFlat: tm0, tm1, tm2 = time-major |y|, phase, mask; nothing channel-major.
+// kComplex: tm0 = (T, M) float2 of (re, im); nothing else.
+template <typename In, int kMode>
 __global__ void __launch_bounds__(kThreads)
-channelize_kernel(const PackedT* __restrict__ xq,
-                  const PackedT* __restrict__ hist,  // (P-1, M) or null
+channelize_kernel(const In in,
                   const float* __restrict__ taps,    // (P, M)
                   const float* __restrict__ wr,      // (M, MP)
                   const float* __restrict__ wi,      // (M, MP)
-                  float* __restrict__ mag_tm,        // (T, M)
+                  float* __restrict__ tm0,           // (T, M)
+                  float* __restrict__ tm1,
+                  float* __restrict__ tm2,
                   float* __restrict__ mag_cm,        // (M, T)
                   float* __restrict__ dph_cm,
                   float* __restrict__ sat_out,
                   int* __restrict__ tile_tot,        // (M, n_tiles)
                   int M, int MP, int P, int T, int FT, float scale,
                   float sat_level) {
+  constexpr bool kCmOut = kMode == kCm2 || kMode == kCm;  // look-ahead too
   extern __shared__ __align__(16) float smem[];
   const Smem lay = smem_layout(M, P, FT);
   const int tid = threadIdx.x;
@@ -153,14 +205,14 @@ channelize_kernel(const PackedT* __restrict__ xq,
     const long long base = (long long)(t0 - (P - 1)) * M;
     const long long n_all = (long long)T * M;
     const long long n_hist = (long long)(P - 1) * M;
-    const int n_x = (FT + P) * M;
+    const int n_x = (FT + P - (kCmOut ? 0 : 1)) * M;
     for (int i = tid; i < n_x; i += kThreads) {
       long long g = base + i;
       float vi = 0.0f, vq = 0.0f;
       if (g >= 0 && g < n_all) {
-        unpack(xq[g], vi, vq);
-      } else if (g < 0 && hist != nullptr) {
-        unpack(hist[g + n_hist], vi, vq);
+        in.load(g, vi, vq);
+      } else if (g < 0 && in.has_hist()) {
+        in.load_hist(g + n_hist, vi, vq);
       }
       Xr[i] = vi * scale;
       Xi[i] = vq * scale;
@@ -170,7 +222,7 @@ channelize_kernel(const PackedT* __restrict__ xq,
 
   // 2. branch FIR: u[t, rho] = sum_p taps[p, rho] * x[t - p, rho]
   {
-    const int n_u = (FT + 1) * M;
+    const int n_u = (FT + (kCmOut ? 1 : 0)) * M;
     for (int i = tid; i < n_u; i += kThreads) {
       int t = i / M, rho = i - t * M;
       float ar = 0.0f, ai = 0.0f;
@@ -230,6 +282,11 @@ channelize_kernel(const PackedT* __restrict__ xq,
         for (int i = 0; i < 4; ++i) {
           const int t = tg * 4 + i;
           const float re = yr[i][j], im = yi[i][j];
+          if (kMode == kComplex) {
+            mag_s[k * PS + t] = re;
+            ph_s[k * PS + t] = im;
+            continue;
+          }
           mag_s[k * PS + t] = sqrtf(re * re + im * im);
           ph_s[k * PS + t] = atan2_cephes(im, re) * rad2deg;
           sat_s[k * FT + t] =
@@ -238,7 +295,7 @@ channelize_kernel(const PackedT* __restrict__ xq,
       }
     }
     // the look-ahead frame's phase: one dot product per channel
-    for (int k = tid; k < M; k += kThreads) {
+    for (int k = tid; kCmOut && k < M; k += kThreads) {
       float re = 0.0f, im = 0.0f;
       for (int rho = 0; rho < M; ++rho) {
         const float a = Ur[rho * US + FT], b = Ui[rho * US + FT];
@@ -254,14 +311,26 @@ channelize_kernel(const PackedT* __restrict__ xq,
   }
   __syncthreads();
 
-  // 4a. cm mode: |y| time-major, the channel index fastest
-  if (kCm) {
+  // 4a. the time-major outputs, the channel index fastest
+  if (kMode != kCm2) {
     const int n_t = min(FT, T - t0);
     for (int i = tid; i < n_t * M; i += kThreads) {
       const int t = i / M, k = i - t * M;
-      mag_tm[(size_t)(t0 + t) * M + k] = mag_s[k * PS + t];
+      const size_t g = (size_t)(t0 + t) * M + k;
+      if (kMode == kComplex) {
+        reinterpret_cast<float2*>(tm0)[g] =
+            make_float2(mag_s[k * PS + t], ph_s[k * PS + t]);
+        continue;
+      }
+      tm0[g] = mag_s[k * PS + t];
+      if (kMode == kFlat) {
+        tm1[g] = ph_s[k * PS + t];
+        tm2[g] = (float)sat_s[k * FT + t];
+      }
     }
   }
+  if (!kCmOut) return;
+  constexpr bool kMask = kMode == kCm;
 
   // 4b. channel-major write, a warp per channel, time across the lanes
   for (int k = warp; k < M; k += kWarps) {
@@ -272,7 +341,7 @@ channelize_kernel(const PackedT* __restrict__ xq,
       const int ta = t0 + t;
       const bool in = t < FT && ta < T;
       const int s = in ? sat_s[k * FT + t] : 0;
-      const int incl = kCm ? s : sdr::warp_inclusive_sum(s, lane);
+      const int incl = kMask ? s : sdr::warp_inclusive_sum(s, lane);
       if (in) {
         mag_cm[row + ta] = mag_s[k * PS + t];
         float d = ph_s[k * PS + t + 1] - ph_s[k * PS + t];
@@ -282,9 +351,9 @@ channelize_kernel(const PackedT* __restrict__ xq,
         dph_cm[row + ta] = d;
         sat_out[row + ta] = (float)(carry + incl);
       }
-      if (!kCm) carry += __shfl_sync(sdr::kFullMask, incl, 31);
+      if (!kMask) carry += __shfl_sync(sdr::kFullMask, incl, 31);
     }
-    if (!kCm && lane == 0) tile_tot[(size_t)k * gridDim.x + tile_idx] = carry;
+    if (!kMask && lane == 0) tile_tot[(size_t)k * gridDim.x + tile_idx] = carry;
   }
 }
 
@@ -328,83 +397,108 @@ __global__ void add_offsets_kernel(float* __restrict__ satcs_cm,
   }
 }
 
-template <typename PackedT, bool kCm>
-int launch(const void* xq, const void* hist, const float* taps,
-           const float* wr, const float* wi, float* mag_tm, float* mag,
-           float* dph, float* sat, int* tile_tot, int M, int MP, int P, int T,
-           int FT, float scale, float sat_level, cudaStream_t stream) {
-  const Smem lay = smem_layout(M, P, FT);
-  const size_t bytes = (size_t)lay.n_float * sizeof(float) + (size_t)M * FT;
+struct Args {
+  const float* taps;
+  const float* wr;
+  const float* wi;
+  float* out[6];  // tm0, tm1, tm2, mag_cm, dph_cm, sat_out
+  int* tile_tot;
+  int M, MP, P, T, FT;
+  float scale, sat_level;
+  cudaStream_t stream;
+};
+
+template <typename In, int kMode>
+int launch(const In& in, const Args& a) {
+  const Smem lay = smem_layout(a.M, a.P, a.FT);
+  const size_t bytes =
+      (size_t)lay.n_float * sizeof(float) + (size_t)a.M * a.FT;
   cudaError_t err = cudaFuncSetAttribute(
-      channelize_kernel<PackedT, kCm>,
+      channelize_kernel<In, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (T + FT - 1) / FT;
-  channelize_kernel<PackedT, kCm><<<n_tiles, kThreads, bytes, stream>>>(
-      static_cast<const PackedT*>(xq), static_cast<const PackedT*>(hist), taps,
-      wr, wi, mag_tm, mag, dph, sat, tile_tot, M, MP, P, T, FT, scale,
-      sat_level);
+  const int n_tiles = (a.T + a.FT - 1) / a.FT;
+  channelize_kernel<In, kMode><<<n_tiles, kThreads, bytes, a.stream>>>(
+      in, a.taps, a.wr, a.wi, a.out[0], a.out[1], a.out[2], a.out[3],
+      a.out[4], a.out[5], a.tile_tot, a.M, a.MP, a.P, a.T, a.FT, a.scale,
+      a.sat_level);
   err = cudaGetLastError();
-  if (err != cudaSuccess || kCm) return (int)err;
-  scan_tiles_kernel<<<M, kScanThreads, 0, stream>>>(tile_tot, n_tiles);
+  if (err != cudaSuccess || kMode != kCm2) return (int)err;
+  scan_tiles_kernel<<<a.M, kScanThreads, 0, a.stream>>>(a.tile_tot, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + kAddCols - 1) / kAddCols, M);
-  add_offsets_kernel<<<grid, 256, 0, stream>>>(sat, tile_tot, M, T, FT);
+  dim3 grid((a.T + kAddCols - 1) / kAddCols, a.M);
+  add_offsets_kernel<<<grid, 256, 0, a.stream>>>(a.out[5], a.tile_tot, a.M,
+                                                 a.T, a.FT);
   return (int)cudaGetLastError();
+}
+
+template <typename In>
+int launch_mode(int mode, const In& in, const Args& a) {
+  switch (mode) {
+    case kCm2: return launch<In, kCm2>(in, a);
+    case kCm: return launch<In, kCm>(in, a);
+    case kFlat: return launch<In, kFlat>(in, a);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Dynamic shared memory of one block, in bytes, for the wrapper's choice of
 // the tile length FT.
-extern "C" long long sdr_channelize_cm2_smem(int M, int P, int FT) {
+extern "C" long long sdr_channelize_smem(int M, int P, int FT) {
   const Smem lay = smem_layout(M, P, FT);
   return (long long)lay.n_float * sizeof(float) + (long long)M * FT;
 }
 
-// packed_bytes: 4 = int32 holding an int16 (I, Q) pair, 2 = int16 holding an
-// int8 pair.  hist: (P-1, M) packed frames that precede the block, or null
-// for zeros.  MP = M rounded up to 4 (row stride of wr, wi); FT a multiple
-// of 4.  Returns the cudaError_t of the first failing call, 0 if none.
-extern "C" int sdr_channelize_cm2(const void* xq, int packed_bytes,
-                                  const void* hist, const void* taps,
-                                  const void* wr, const void* wi, void* mag,
-                                  void* dph, void* satcs, void* tile_tot,
-                                  int M, int MP, int P, int T, int FT,
-                                  float scale, float sat_level, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (packed_bytes == 4)
-    return launch<int32_t, false>(
-        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
-        nullptr, (float*)mag, (float*)dph, (float*)satcs, (int*)tile_tot, M,
-        MP, P, T, FT, scale, sat_level, s);
-  if (packed_bytes == 2)
-    return launch<int16_t, false>(
-        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
-        nullptr, (float*)mag, (float*)dph, (float*)satcs, (int*)tile_tot, M,
-        MP, P, T, FT, scale, sat_level, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The cm mode: mag_tm (T, M) time-major |y|; mag, dph, sat (M, T), sat the
-// 0/1 saturation mask.  Other arguments as sdr_channelize_cm2.
-extern "C" int sdr_channelize_cm(const void* xq, int packed_bytes,
-                                 const void* hist, const void* taps,
-                                 const void* wr, const void* wi, void* mag_tm,
-                                 void* mag, void* dph, void* sat, int M,
-                                 int MP, int P, int T, int FT, float scale,
-                                 float sat_level, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (packed_bytes == 4)
-    return launch<int32_t, true>(
-        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
-        (float*)mag_tm, (float*)mag, (float*)dph, (float*)sat, nullptr, M, MP,
-        P, T, FT, scale, sat_level, s);
-  if (packed_bytes == 2)
-    return launch<int16_t, true>(
-        xq, hist, (const float*)taps, (const float*)wr, (const float*)wi,
-        (float*)mag_tm, (float*)mag, (float*)dph, (float*)sat, nullptr, M, MP,
-        P, T, FT, scale, sat_level, s);
+// mode: 0 = cm2, 1 = cm, 2 = flat, 3 = complex (float32 planes only).
+// ingest: 0 = x0 packed int32 (an int16 (I, Q) pair an element), 1 = x0
+// packed int16 (an int8 pair), 2 = x0, x1 int16 planes, 3 = x0, x1 float32
+// planes; a plane's sample g is its element g * stride.  h0 (and h1 for
+// planes): the (P-1, M) samples that precede the block, dense, or null for
+// zeros.  out0..out5: time-major (T, M) |y| (cm, flat) or interleaved y
+// (complex); time-major phase and mask (flat); channel-major (M, T) |y|,
+// phase difference and saturation count or mask (cm2, cm); unused ones may
+// be null.  MP = M rounded up to 4 (row stride of wr, wi); FT a multiple of
+// 4.  Returns the cudaError_t of the first failing call, 0 if none.
+extern "C" int sdr_channelize(int mode, int ingest, const void* x0,
+                              const void* x1, const void* h0, const void* h1,
+                              int stride, const void* taps, const void* wr,
+                              const void* wi, void* out0, void* out1,
+                              void* out2, void* out3, void* out4, void* out5,
+                              void* tile_tot, int M, int MP, int P, int T,
+                              int FT, float scale, float sat_level,
+                              void* stream) {
+  Args a;
+  a.taps = (const float*)taps;
+  a.wr = (const float*)wr;
+  a.wi = (const float*)wi;
+  void* outs[6] = {out0, out1, out2, out3, out4, out5};
+  for (int i = 0; i < 6; ++i) a.out[i] = (float*)outs[i];
+  a.tile_tot = (int*)tile_tot;
+  a.M = M; a.MP = MP; a.P = P; a.T = T; a.FT = FT;
+  a.scale = scale;
+  a.sat_level = sat_level;
+  a.stream = static_cast<cudaStream_t>(stream);
+  switch (ingest) {
+    case 0:
+      return launch_mode(mode, PackedIn<int32_t>{(const int32_t*)x0,
+                                                 (const int32_t*)h0}, a);
+    case 1:
+      return launch_mode(mode, PackedIn<int16_t>{(const int16_t*)x0,
+                                                 (const int16_t*)h0}, a);
+    case 2:
+      return launch_mode(
+          mode, PlanesIn<int16_t>{(const int16_t*)x0, (const int16_t*)x1,
+                                  (const int16_t*)h0, (const int16_t*)h1,
+                                  stride}, a);
+    case 3: {
+      const PlanesIn<float> in{(const float*)x0, (const float*)x1,
+                               (const float*)h0, (const float*)h1, stride};
+      if (mode == kComplex) return launch<PlanesIn<float>, kComplex>(in, a);
+      return launch_mode(mode, in, a);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

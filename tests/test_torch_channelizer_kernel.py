@@ -1,5 +1,6 @@
-"""The port's channelizer (the plain versions of kernel K1 and of its cm
-form, and the FFT oracle) against the JAX package on the same inputs."""
+"""The port's channelizer (the plain versions of kernel K1, of its cm, flat
+and complex forms and of their planes ingests, and the FFT oracle) against
+the JAX package on the same inputs."""
 
 import numpy as np
 import pytest
@@ -8,7 +9,11 @@ import torch
 import jax.numpy as jnp
 
 from sdr_channelizer_tpu.dsp import channelizer as jchan
+from sdr_channelizer_tpu.io import iqpacket as jiq
 from sdr_channelizer_tpu.ops.pallas.channelizer_kernel import (
+    pallas_channelize,
+    pallas_channelize_streams,
+    pallas_channelize_streams_packed,
     pallas_channelize_streams_packed_cm,
     pallas_channelize_streams_packed_cm2,
 )
@@ -267,3 +272,168 @@ def test_history_is_checked():
     with pytest.raises(TypeError):
         ck.channelize_streams_packed_cm2(
             xq, taps, history=torch.zeros(11 * M, dtype=torch.int16))
+
+
+# ------------------------------- the flat form, the complex form, planes
+
+@pytest.fixture(scope="module",
+                params=[(12, False, "packed"), (12, True, "packed"),
+                        (8, False, "packed"), (12, False, "planes"),
+                        (12, True, "planes")],
+                ids=["int16", "int16-history", "int8", "f32-planes",
+                     "f32-planes-history"])
+def flat_streams(request):
+    """(JAX time-major streams, the port's): the whole capture, or its
+    second part entered with the first part's tail; packed pairs, or float32
+    planes of the dequantized samples."""
+    bw, with_history, ingest = request.param
+    xq, cut, hist = _split(bw)
+    taps = jchan.Channelizer.create(M).taps_rev
+    if with_history:
+        xq = xq[cut * M:]
+    else:
+        hist = None
+    kw = dict(block_frames=256, interpret=True)
+    if ingest == "packed":
+        ref = pallas_channelize_streams_packed(
+            jnp.asarray(xq), taps, bit_width=bw,
+            history=None if hist is None else jnp.asarray(hist), **kw)
+        got = ck.channelize_streams_packed(
+            torch.from_numpy(xq), taps, bw,
+            history=None if hist is None else torch.from_numpy(hist))
+    else:
+        def planes(v):
+            i, q = ck.unpack_pairs(torch.from_numpy(v))
+            return (i / 2048.0).numpy(), (q / 2048.0).numpy()
+
+        xr, xi = planes(xq)
+        hp = None if hist is None else planes(hist)
+        ref = pallas_channelize_streams(
+            jnp.asarray(xr), jnp.asarray(xi), taps, bit_width=0,
+            history=None if hp is None else tuple(jnp.asarray(h) for h in hp),
+            **kw)
+        got = ck.channelize_streams(
+            torch.from_numpy(xr), torch.from_numpy(xi), taps, 0,
+            history=None if hp is None else tuple(torch.from_numpy(h)
+                                                  for h in hp))
+    return [np.asarray(r) for r in ref], [g.numpy() for g in got]
+
+
+def test_flat_mag_matches_jax_kernel(flat_streams):
+    ref, got = flat_streams
+    assert got[0].shape == ref[0].shape and got[0].dtype == np.float32
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5, atol=1e-5)
+
+
+def test_flat_phase_matches_jax_kernel(flat_streams):
+    ref, got = flat_streams
+    assert np.abs(got[1]).max() <= 180.0
+    d = (got[1] - ref[1] + 180.0) % 360.0 - 180.0
+    # the planes agree to 1e-5, so a phase may differ by the angle that
+    # subtends at the sample's magnitude
+    slack = np.rad2deg(1e-5 / np.maximum(ref[0], 1e-30))
+    loud = ref[0] > 1e-4
+    assert np.all(np.abs(d[loud]) <= 1e-3 + slack[loud])
+    assert np.abs(d[ref[0] > 1e-2]).max() <= 0.005
+
+
+def test_flat_mask_matches_jax_kernel_exactly(flat_streams):
+    ref, got = flat_streams
+    assert set(np.unique(got[2])) <= {0.0, 1.0}
+    np.testing.assert_array_equal(got[2], ref[2])
+
+
+@pytest.mark.parametrize("bw", [12, 8], ids=["int16", "int8"])
+def test_flat_form_holds_the_bits_of_the_cm_form(bw):
+    xq = torch.from_numpy(packed(pulse_capture(bw)))
+    taps = tchan.Channelizer.create(M).taps_rev
+    mag, ph, sat = ck.channelize_streams_packed(xq, taps, bw)
+    mag_tm, mag_cm, dph_cm, sat_cm = ck.channelize_streams_packed_cm(
+        xq, taps, bw)
+    assert torch.equal(mag, mag_tm) and torch.equal(sat, sat_cm.T)
+    assert sat.any()
+    d = ph[1:] - ph[:-1]
+    d = torch.where(d < -180.0, d + 360.0, d)
+    d = torch.where(d > 180.0, d - 360.0, d)
+    assert torch.equal(d.T, dph_cm[:, :-1])
+
+
+@pytest.mark.parametrize("form", ["flat", "cm", "cm2"])
+@pytest.mark.parametrize("planes", ["int16", "float32"])
+def test_planes_ingest_holds_the_bits_of_the_packed_ingest(form, planes):
+    """Raw int16 planes with the bit width, or their float32 dequantization
+    with bit width 0, with and without a history."""
+    xq, cut, hist = _split(12)
+    taps = tchan.Channelizer.create(M).taps_rev
+    name = {"flat": "", "cm": "_cm", "cm2": "_cm2"}[form]
+    packed_fn = getattr(ck, f"channelize_streams_packed{name}")
+    planes_fn = getattr(ck, f"channelize_streams{name}")
+
+    def split(v):
+        i, q = ck.unpack_pairs(torch.from_numpy(v))
+        if planes == "int16":
+            return i.to(torch.int16), q.to(torch.int16)
+        return i / 2048.0, q / 2048.0
+
+    bw = 12 if planes == "int16" else 0
+    whole = packed_fn(torch.from_numpy(xq), taps, 12)
+    got = planes_fn(*split(xq), taps, bw)
+    for a, b in zip(got, whole):
+        assert torch.equal(a, b)
+    part = packed_fn(torch.from_numpy(xq[cut * M:]), taps, 12,
+                     history=torch.from_numpy(hist))
+    got = planes_fn(*split(xq[cut * M:]), taps, bw, history=split(hist))
+    for a, b in zip(got, part):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def complex_bands():
+    """(the JAX complex kernel's bands in interpret mode, the port's)."""
+    x = jiq.to_complex(pulse_capture(12), 12)
+    taps = jchan.Channelizer.create(M).taps_rev
+    ref = pallas_channelize(jnp.asarray(x), taps, block_frames=256,
+                            interpret=True)
+    return x, np.asarray(ref), ck.channelize_complex(torch.from_numpy(x), taps)
+
+
+def test_complex_form_matches_jax_kernel(complex_bands):
+    x, ref, got = complex_bands
+    assert got.shape == ref.shape == (len(x) // M, M)
+    assert got.dtype == torch.complex64
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_complex_form_is_the_ports_dft_channelizer(complex_bands):
+    x, _, got = complex_bands
+    chan = tchan.Channelizer.create(M)
+    y = tchan.channelize(x, chan, method="dft", device="cpu")
+    np.testing.assert_allclose(got.numpy(), y.numpy(), rtol=1e-5, atol=1e-5)
+    xt = torch.from_numpy(x)
+    planes = ck.channelize_complex_planes(xt.real.contiguous(),
+                                          xt.imag.contiguous(), chan.taps_rev)
+    assert torch.equal(torch.view_as_real(planes), torch.view_as_real(got))
+    flat = ck.channelize_streams_packed(
+        torch.from_numpy(packed(pulse_capture(12))), chan.taps_rev, 12)
+    np.testing.assert_allclose(got.abs().numpy(), flat[0].numpy(), rtol=1e-5,
+                               atol=1e-6)
+    no_shift = ck.channelize_complex(xt, chan.taps_rev, shift=False)
+    assert torch.equal(torch.fft.fftshift(no_shift, dim=-1), got)
+
+
+def test_planes_wrappers_reject_what_the_kernel_does_not_take():
+    taps = tchan.Channelizer.create(M).taps_rev
+    f = torch.zeros(64)
+    with pytest.raises(TypeError):
+        ck.channelize_streams(f.double(), f.double(), taps)
+    with pytest.raises(TypeError):
+        ck.channelize_streams(f, f.to(torch.int16), taps)
+    with pytest.raises(ValueError):
+        ck.channelize_streams(f, f[:32], taps)
+    with pytest.raises(ValueError):
+        ck.channelize_streams_cm2(f, f, taps, history=(f[:8], f[:8]))
+    with pytest.raises(TypeError):
+        ck.channelize_complex(f, taps)
+    with pytest.raises(TypeError):
+        ck.channelize_complex_planes(f.to(torch.int16), f.to(torch.int16),
+                                     taps)

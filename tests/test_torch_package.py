@@ -63,7 +63,8 @@ def test_sources_name_neither_jax_nor_the_jax_package():
 def test_kernel_sources_are_in_the_package():
     csrc = os.path.join(PORT, "ops", "cuda", "csrc")
     assert sorted(f for f in os.listdir(csrc) if f.endswith(".cu")) == [
-        "channelizer.cu", "latch.cu", "noise_floor.cu", "pulse_stats.cu"]
+        "channelizer.cu", "latch.cu", "noise_floor.cu", "pulse_stats.cu",
+        "transpose.cu"]
 
 
 @pytest.mark.parametrize("bit_width", [8, 12, 16])
@@ -120,7 +121,7 @@ def test_cli_generate_then_pdw_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["pdw", "x.iq"],
+    ["pdw", "x.npz", "--device", "cpu"],
     ["pdw", "x.iq", "--stream", "--shards", "2"],
     ["pdw", "x.iq", "--channelized", "--shards", "2"],
     ["pdw", "x.npz", "--channelized", "--device", "cpu"],

@@ -293,11 +293,29 @@ def test_streams_cm_default_floor_is_the_blocks_median(jax_block):
                                       getattr(b, field).numpy(), err_msg=field)
 
 
-def test_kernel_tail_without_cm_streams_says_not_ported():
-    mag = torch.zeros((64, M))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tpdw._extract_channelized_pallas_stats(
-            mag, mag, mag, PdwConfig.channelized(**CFG_KW), torch.ones(M))
+def test_kernel_tail_without_cm_streams_says_not_ported(jax_block):
+    """It is ported: without ``cm_streams`` the tail makes them itself, by
+    the flip of the time-major streams, and emits the batch of the same
+    streams handed in ready-made."""
+    cut, nf, entry, _, _ = jax_block
+    mag, mag_cm, dph_cm, sat_cm = (torch.from_numpy(c.copy()) for c in cut)
+    # a time-major phase whose wrapped steps are dph_cm's, bit for bit: on
+    # a grid coarse enough for float32 sums to be exact
+    dq = torch.round(dph_cm * 8.0) / 8.0
+    ph = torch.cat([torch.zeros(1, M), torch.cumsum(dq.T[:-1], dim=0)])
+    ph = (ph + 180.0) % 360.0 - 180.0
+    kw = dict(entry_active=torch.from_numpy(entry.copy()), own_len=BLK_OWN)
+    cfg = PdwConfig.channelized(**CFG_KW)
+    nf_t = torch.from_numpy(nf.copy())
+    got = tpdw._extract_channelized_pallas_stats(
+        mag, ph, sat_cm.T.contiguous() > 0.5, cfg, nf_t, **kw)
+    dq[:, -1] = 0.0
+    ref = tpdw._extract_channelized_pallas_stats(
+        mag, None, None, cfg, nf_t, cm_streams=(mag_cm, dq, sat_cm), **kw)
+    assert int(got.count.sum()) > 4
+    for field in FIELDS:
+        a, b = getattr(got, field), getattr(ref, field)
+        assert torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0)), field
 
 
 @pytest.mark.parametrize("field", FIELDS)

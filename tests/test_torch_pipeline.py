@@ -158,17 +158,36 @@ def test_recovers_the_generators_pulses():
 
 @pytest.mark.parametrize("route", ["cm", "flat", "cm2c", "cm2g"])
 def test_unported_routes_are_rejected(route):
+    """The cm and flat routes are ported and run; the two A/B knobs of the
+    JAX package's cm2 tail do not carry over and say so."""
     _, tpipe = _pipelines()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpipe.forward_packed(packed(pulse_capture(12)), 12, route=route)
+    xq = packed(pulse_capture(12))
+    if route in ("cm", "flat"):
+        nf, mag, batch = tpipe.forward_packed(xq, 12, route=route)
+        assert mag.shape == (len(xq) // M, M) and nf.shape == (M,)
+        assert int(batch.count.sum()) > 8
+        return
+    with pytest.raises(NotImplementedError, match="does not carry over"):
+        tpipe.forward_packed(xq, 12, route=route)
+    with pytest.raises(NotImplementedError, match="does not carry over"):
+        tpipe.forward_fused(np.zeros(64, np.float32), np.zeros(64, np.float32),
+                            route=route)
 
 
 def test_unknown_route_and_float_payloads_are_rejected():
+    """An unknown route and a payload that is no (N, 2) integer or float
+    buffer are rejected; a float payload itself is taken (as planes)."""
     _, tpipe = _pipelines()
     with pytest.raises(ValueError):
         tpipe.forward_packed(packed(pulse_capture(12)), 12, route="nope")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpipe.extract_fused(np.zeros((64, 2), np.float32), 0, fs=FS)
+    with pytest.raises(ValueError):
+        tpipe.extract_fused(np.zeros((64, 3), np.float32), 0, fs=FS)
+    with pytest.raises(TypeError):
+        tpipe.extract_fused(np.zeros((64, 2), np.uint32), 12, fs=FS)
+    samples = pulse_capture(12)
+    got = tpipe.extract_fused(samples.astype(np.float32) / 2048.0, 0, fs=FS)
+    ref = tpipe.extract_fused(samples, 12, fs=FS)
+    _assert_pdws_close(got, ref)
 
 
 def test_from_reference_carries_the_parameters_across():
