@@ -15,8 +15,14 @@ same samples; then the wideband path (``WidebandPdwPipeline`` on 16,000,000
 complex samples through the time-major latch, the flip kernel and the
 statistics at one channel, and 33,554,432 samples block by block against the
 oracle extractor), the single-shot routes ``"flat"`` and ``"cm"`` against
-``"cm2"``, float payloads and the complex-free step; and runs the CLI.  One
-JSON line per phase; any failure exits non-zero.  ``--profile`` adds phases that print the device time of a step by
+``"cm2"``, float payloads and the complex-free step; then the batched
+statistics kernel on the main path and route ``"cm"`` (``stats_batch``:
+PDWs bit for bit those of the per-slot kernel), event prediction (eight 80
+ms dwells at 56 Msps of a scanning beam, written by the recorder, through
+``predict`` in-process, against its plain run, and through the CLI) and the
+closed-loop tracker (20 dwells synthesised on the card); and runs the CLI,
+the capture commands included.  One JSON line per phase; any failure exits
+non-zero.  ``--profile`` adds phases that print the device time of a step by
 kernel name and where a streamed block's time goes.  There is no CPU path:
 without a CUDA device the script exits at once with code 2 and prints no
 result.
@@ -27,7 +33,9 @@ The last line of the standard output is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -48,6 +56,20 @@ WIDE_LONG_SAMPLES = 1 << 25   # past 2^24: the blocked wideband route
 WIDE_FS = 56e6
 BIT_WIDTH = 12
 DEVICE = "cuda"
+# event prediction and tracking: 80 ms dwells at 56 Msps, the scanning beam
+# of tools/tpu_tracker_drive.py:71-83 (10 us pulses every 5 ms, scan period
+# 0.5 s, phase 0.1 s, 2000 dB/s^2, noise -55 dB) and its dense scene (:84-92)
+EVENT_FS = 56e6
+DWELL_SEC = 0.08
+PREDICT_FILES = 8
+PREDICT_WINDOW = 65536        # predict's --max-pulse-samples default
+TRACK_DWELLS = 20
+SCAN = dict(tone_offset_hz=5e6, pulse_width_sec=10e-6, pri_sec=5e-3,
+            gain_db=60.0, rel_amplitude=0.9, noise_db=-55.0,
+            scan_period_sec=0.5, scan_phase_sec=0.1,
+            scan_curvature_db_per_s2=2000.0)
+DENSE_SCENE = dict(SCAN, pri_sec=0.5e-3, pulse_width_sec=2e-6)
+EVENT_MAG_RTOL = 2e-5   # float32 prefix sums in another order
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 
@@ -456,6 +478,16 @@ def kernels_small():
                   and all(same(x, y.reshape(-1)[perm])
                           for x, y in zip(ad, a3)),
                   f"K4 dense {where} window={window}: differs from plain")
+            # B10: the same slots a batch of tiles at a time, K4's bits
+            for bt in (2, 8):
+                ab = k.pulse_stats(mag, dph, toa, te, window, frames, sat_cm,
+                                   batch_tiles=bt)
+                adb = k.pulse_stats_dense(mag, dph, sat_cm, toa_f, te_f, chan,
+                                          window, frames, batch_tiles=bt)
+                check(all(same(x, y) for x, y in zip(ab, a3))
+                      and all(same(x, y) for x, y in zip(adb, ad)),
+                      f"B10 {where} window={window} batch_tiles={bt}: "
+                      f"differs from K4")
         torch.cuda.synchronize()
         cases.append({"case": where, **res})
     return cases
@@ -663,6 +695,7 @@ def kernels_main_shape(xq, pipe):
     import torch
 
     from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.cuda import pulse_stats_kernel as psk
 
     m, t_len = M_MAIN, FRAMES_MAIN
     taps = pipe.channelizer.taps_rev
@@ -743,15 +776,41 @@ def kernels_main_shape(xq, pipe):
         live_bytes += int((live * (2 * n_mag - 1).clamp(min=0)).sum()) * 4
         live_bytes += 4 * 4 * t_s.numel()
         del a, b
+    k4_ms = time_ms(lambda: [k.pulse_stats(mag, dph, t_s, e_s, w, t_len)
+                             for t_s, e_s, w in tiers])
+    plain_ms = time_ms(lambda: [k.pulse_stats_plain(mag, dph, t_s, e_s, w,
+                                                    t_len)
+                                for t_s, e_s, w in tiers], reps=3, warmup=1)
+    slots = {"tiny": int(tiny.sum()), "short": int(short.sum()),
+             "long": int(long_.sum())}
     row("pulse_stats", "pulse_stats.cu", "pulse_stats_kernel.py:771",
-        err, True,
-        time_ms(lambda: [k.pulse_stats(mag, dph, t_s, e_s, w, t_len)
+        err, True, k4_ms, plain_ms, None, n_bytes=live_bytes, n_flop=0,
+        slots=slots)
+
+    # B10: the same two tier calls with batch_tiles = 8, as the cm2 tail
+    # makes them with _STATS_BATCH = 8: 8 tiles a batch at window 128, 5 at
+    # window 1024; bit for bit K4's and the plain version's
+    nts = [psk.batched_tiles(8, w, t_s.numel()) for t_s, _, w in tiers]
+    check(nts == [8, 5], f"B10 main shape: {nts} tiles a batch, not [8, 5]")
+    for t_s, e_s, w in tiers:
+        a = k.pulse_stats(mag, dph, t_s, e_s, w, t_len, batch_tiles=8)
+        b = k.pulse_stats_plain(mag, dph, t_s, e_s, w, t_len, batch_tiles=8)
+        c = k.pulse_stats(mag, dph, t_s, e_s, w, t_len)
+        check(same(a[0], b[0]) and same(a[1], b[1]) and same(a[0], c[0])
+              and same(a[1], c[1]), f"B10 main shape window={w}: differs "
+                                    f"from plain or from K4")
+        del a, b, c
+    live_tiles = [int(psk._live_tiles(t_s.reshape(-1), t_len, nt)[1])
+                  for (t_s, _, _), nt in zip(tiers, nts)]
+    row("pulse_stats_batched", "pulse_stats.cu", "pulse_stats_kernel.py:445",
+        0.0, True,
+        time_ms(lambda: [k.pulse_stats(mag, dph, t_s, e_s, w, t_len,
+                                       batch_tiles=8)
                          for t_s, e_s, w in tiers]),
-        time_ms(lambda: [k.pulse_stats_plain(mag, dph, t_s, e_s, w, t_len)
-                         for t_s, e_s, w in tiers], reps=3, warmup=1),
-        None, n_bytes=live_bytes, n_flop=0,
-        slots={"tiny": int(tiny.sum()), "short": int(short.sum()),
-               "long": int(long_.sum())})
+        plain_ms, None, n_bytes=live_bytes, n_flop=0, equals_k4=True,
+        k4_ms=k4_ms, tiles_a_batch=nts, live_tiles=live_tiles,
+        tiles=[-(-t_s.numel() // psk.TILE) for t_s, _, _ in tiers],
+        slots=slots)
     del got, mag, dph, satcs, packed
     kernels_block_shape(xq, pipe, row)
     return rows
@@ -765,6 +824,7 @@ def kernels_block_shape(xq, pipe, row):
     import torch
 
     from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.cuda import pulse_stats_kernel as psk
 
     m, t_len = M_MAIN, BLOCK_FRAMES + HALO_FRAMES
     taps = pipe.channelizer.taps_rev
@@ -870,18 +930,112 @@ def kernels_block_shape(xq, pipe, row):
         n_bytes += stats_bytes(t_s, e_s, win, 12 + 12)
         flagged += int(a[2].sum())
         del a, b
+    k4_ms = time_ms(lambda: [k.pulse_stats_dense(mag, dph, sat, t_s, e_s,
+                                                 chan, win, t_len)
+                             for t_s, e_s, win in tiers])
+    plain_ms = time_ms(lambda: [k.pulse_stats_dense_plain(
+        mag, dph, sat, t_s, e_s, chan, win, t_len)
+        for t_s, e_s, win in tiers], reps=3, warmup=1)
+    slots = {"tiny": int(tiny.sum()), "short": int(short.sum()),
+             "long": int(long_.sum())}
     row("pulse_stats_dense", "pulse_stats.cu", "pulse_stats_kernel.py:771",
-        err, True,
+        err, True, k4_ms, plain_ms, None, n_bytes=n_bytes, n_flop=0,
+        shape=f"M={m} T={t_len}", flagged=flagged, slots=slots)
+
+    # B10 on the flat lists with the mask, as the streamed block's tail
+    # calls it with _STATS_BATCH = 8: bit for bit K4's and the plain's
+    for t_s, e_s, win in tiers:
+        a = k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan, win, t_len,
+                                batch_tiles=8)
+        b = k.pulse_stats_dense_plain(mag, dph, sat, t_s, e_s, chan, win,
+                                      t_len, batch_tiles=8)
+        c = k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan, win, t_len)
+        check(all(same(x, y) and same(x, z) for x, y, z in zip(a, b, c)),
+              f"B10 dense block shape window={win}: differs from plain or "
+              f"from K4")
+        del a, b, c
+    row("pulse_stats_dense_batched", "pulse_stats.cu",
+        "pulse_stats_kernel.py:445", 0.0, True,
         time_ms(lambda: [k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan,
-                                             win, t_len)
+                                             win, t_len, batch_tiles=8)
                          for t_s, e_s, win in tiers]),
-        time_ms(lambda: [k.pulse_stats_dense_plain(mag, dph, sat, t_s, e_s,
-                                                   chan, win, t_len)
-                         for t_s, e_s, win in tiers], reps=3, warmup=1),
-        None, n_bytes=n_bytes, n_flop=0, shape=f"M={m} T={t_len}",
-        flagged=flagged,
-        slots={"tiny": int(tiny.sum()), "short": int(short.sum()),
-               "long": int(long_.sum())})
+        plain_ms, None, n_bytes=n_bytes, n_flop=0, shape=f"M={m} T={t_len}",
+        equals_k4=True, k4_ms=k4_ms,
+        tiles_a_batch=[psk.batched_tiles(8, win, t_s.numel())
+                       for t_s, _, win in tiers], slots=slots)
+
+
+def kernels_long_window(rows):
+    """K4 at ``predict``'s window, 65,536, on one dwell of the scanning beam
+    at its peak (one channel x 4,480,000 samples, synthesised on the card):
+    the dwell's pulses, which keep the shared-memory path, plus slots of
+    60,000 and 70,000 samples, longer than a warp's stretch of shared
+    memory, which take the selection from device memory."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.capture import DeviceDwellEmitter
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.cuda import pulse_stats_kernel as psk
+    from sdr_channelizer_tpu_torch.ops.medians import median
+
+    n = int(round(DWELL_SEC * EVENT_FS))
+    w = PREDICT_WINDOW
+    (xr, xi), _ = DeviceDwellEmitter(sample_rate_sps=EVENT_FS, **SCAN,
+                                     device=DEVICE).receive(n, start_time=0.06)
+    cfg = PdwConfig.event(max_pulse_samples=w)
+    mag, ph, sat = pdwmod._prep_streams_planes(xr, xi, cfg.saturation_level)
+    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(median(mag), cfg))
+    toa, te = slot_grids(k.latch_cumsums(mag[:, None], lead, trail), 1, 64, n)
+    real = int(((toa < n) & (te < n)).sum())
+    check(real >= 10, f"K4 long window: {real} pulses in the dwell")
+    toa[0, -2:] = torch.tensor([1000, 2_000_000], dtype=torch.int32)
+    te[0, -2:] = torch.tensor([1000 + 59_999, 2_000_000 + 69_999],
+                              dtype=torch.int32)
+    mag_cm, dph_cm, sat_cm = k.cm_streams(mag[:, None], ph[:, None],
+                                          sat[:, None])
+    toa_f, te_f = toa.reshape(-1).contiguous(), te.reshape(-1).contiguous()
+    chan = torch.zeros_like(toa_f)
+    live = toa_f < n
+    n_mag = torch.minimum(torch.clamp(te_f - toa_f + 1, max=w), n - toa_f)
+    n_long = int((live & (n_mag > psk.SMEM_KEYS_PER_WARP)).sum())
+    check(n_long == 2 and int((live & (n_mag > 1000)).sum()) == 2,
+          f"K4 long window: {n_long} slots past the stretch")
+
+    def call():
+        return k.pulse_stats_dense(mag_cm, dph_cm, sat_cm, toa_f, te_f, chan,
+                                   w, n)
+
+    before = psk.launches_long_window
+    a = call()
+    b = k.pulse_stats_dense_plain(mag_cm, dph_cm, sat_cm, toa_f, te_f, chan,
+                                  w, n)
+    g = k.pulse_stats(mag_cm, dph_cm, toa, te, w, n, sat_cm)
+    torch.cuda.synchronize()
+    check(psk.launches_long_window == before + 2,
+          "K4 long window: the launches were not counted as such")
+    check(all(same(x, y) and same(x, z.reshape(-1))
+              for x, y, z in zip(a, b, g)),
+          "K4 long window: differs from plain or grid form")
+    check(bool(torch.isfinite(a[0][live]).all()),
+          "K4 long window: a live median is not finite")
+    # live samples of |y|, the phase step and the mask's interior once; a
+    # slot's three indices read and three values written
+    per = live * ((2 * n_mag - 1).clamp(min=0) + (n_mag - 2).clamp(min=0))
+    n_bytes = int(per.sum()) * 4 + 24 * toa_f.numel()
+    rows.append(kernel_row(
+        "pulse_stats_long_window", "pulse_stats.cu",
+        "pulse_stats_kernel.py:771", 0.0, True, time_ms(call),
+        time_ms(lambda: k.pulse_stats_dense_plain(
+            mag_cm, dph_cm, sat_cm, toa_f, te_f, chan, w, n), reps=3,
+            warmup=1),
+        None, n_bytes=n_bytes, n_flop=0, shape=f"M=1 T={n}", window=w,
+        pulses=real, slots_past_shared_memory=n_long,
+        stretch=psk.SMEM_KEYS_PER_WARP,
+        ms_without_the_long_slots=time_ms(lambda: k.pulse_stats_dense(
+            mag_cm, dph_cm, sat_cm, toa_f[:-2].contiguous(),
+            te_f[:-2].contiguous(), chan[:-2].contiguous(), w, n))))
 
 
 def pdws_agree(a: dict, b: dict, where: str) -> None:
@@ -1525,6 +1679,219 @@ def phase_routes(pipe, caps):
     return launches
 
 
+def phase_stats_batch(pipe, caps):
+    """B10 on its paths: ``extract_fused`` on both captures and route
+    ``"cm"`` with ``dsp.pdw._STATS_BATCH = 8``, bit for bit the PDWs of the
+    runs with 1 (K4); the steps timed in turns 1, 8, 8, 1."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+    from sdr_channelizer_tpu_torch.ops.cuda import pulse_stats_kernel as psk
+
+    fs = M_MAIN * 1e6
+    out = {}
+    launches = {"pulse_stats_batched": 0, "pulse_stats_dense_batched": 0}
+    try:
+        for name, samples in caps.items():
+            xq = torch.as_tensor(pack(samples), device=pipe.device)
+            res = {}
+            pdwmod._STATS_BATCH = 1
+            ref = pipe.extract_fused(samples, BIT_WIDTH, fs=fs)
+            _, _, batch = pipe.forward_packed(xq, BIT_WIDTH, route="cm")
+            ref_cm = pipe._finalize(batch, fs, 0.0, 0.0)
+            pdwmod._STATS_BATCH = 8
+            psk.launches_batched = psk.launches = 0
+            got = pipe.extract_fused(samples, BIT_WIDTH, fs=fs)
+            torch.cuda.synchronize()
+            n_b, n_k4 = psk.launches_batched, psk.launches
+            check(n_b == 2 and n_k4 == 0, f"stats_batch, {name}: B10 "
+                                          f"{n_b} / K4 {n_k4} launches")
+            pdws_identical(got, ref, f"stats_batch, {name}: 8 vs 1")
+            psk.launches_dense_batched = psk.launches_dense = 0
+            _, _, batch = pipe.forward_packed(xq, BIT_WIDTH, route="cm")
+            got_cm = pipe._finalize(batch, fs, 0.0, 0.0)
+            torch.cuda.synchronize()
+            n_db, n_dk4 = psk.launches_dense_batched, psk.launches_dense
+            check(n_db == 2 and n_dk4 == 0, f"stats_batch, route cm, {name}:"
+                                            f" B10 {n_db} / K4 {n_dk4}")
+            pdws_identical(got_cm, ref_cm, f"stats_batch, route cm, {name}")
+            launches["pulse_stats_batched"] += n_b
+            launches["pulse_stats_dense_batched"] += n_db
+            times = {1: [], 8: []}
+            for bt in (1, 8, 8, 1):
+                pdwmod._STATS_BATCH = bt
+                times[bt].append(time_ms(
+                    lambda: pipe.forward_packed(xq, BIT_WIDTH), reps=5))
+            res.update(pulses=len(got["toa"]), pulses_cm=len(got_cm["toa"]),
+                       identical=True, identical_cm=True,
+                       step_ms_stats_batch_1=times[1],
+                       step_ms_stats_batch_8=times[8])
+            out[name] = res
+            del xq
+    finally:
+        pdwmod._STATS_BATCH = 1
+    emit("stats_batch", bands=M_MAIN, frames=FRAMES_MAIN, batch_tiles=8,
+         launches=launches, **out)
+    return launches
+
+
+def phase_predict():
+    """``predict`` on the card: eight consecutive 80 ms dwells of the
+    scanning beam at 56 Msps written by the port's recorder, through the
+    CLI in a process of its own and in-process; the in-process run against
+    the same files with the plain versions, bit for bit."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.capture import EmulatedRadio
+    from sdr_channelizer_tpu_torch.cli.main import predict_files, record_dwells
+    from sdr_channelizer_tpu_torch.config import CaptureConfig, PdwConfig
+    from sdr_channelizer_tpu_torch.io.convert import load_capture
+    from sdr_channelizer_tpu_torch.models import WidebandPdwPipeline
+    from sdr_channelizer_tpu_torch.ops.cuda import pulse_stats_kernel as psk
+
+    rec = CaptureConfig(frequency_mhz=1000.0, bandwidth_mhz=EVENT_FS / 1e6,
+                        sample_rate_msps=EVENT_FS / 1e6, rx_gain_db=60.0,
+                        dwell_sec=DWELL_SEC,
+                        duration_sec=PREDICT_FILES * DWELL_SEC)
+    cfg = PdwConfig.event(max_pulses=512, max_pulse_samples=PREDICT_WINDOW)
+    counts = {"latch_cumsums": "latch_kernel.launches_tm",
+              "cm_streams": "transpose_kernel.launches",
+              "pulse_stats_dense": "pulse_stats_kernel.launches_dense",
+              "pulse_stats_long_window":
+                  "pulse_stats_kernel.launches_long_window"}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        radio = EmulatedRadio(sample_rate_sps=EVENT_FS, **SCAN,
+                              start_epoch=1723800000.0)
+        files = record_dwells(radio, rec, tmp)
+        record_s = time.perf_counter() - t0
+        check(len(files) == PREDICT_FILES, f"predict: {len(files)} files")
+
+        reset_counts(counts)
+        t0 = time.perf_counter()
+        records, pred, base = predict_files(files, cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        for key, n in launches.items():
+            check(n > 0, f"predict: never launched {key}")
+        plain, pred_plain, _ = predict_files(files, cfg, device=DEVICE,
+                                             plain=True)
+        for (path, p, ev, nxt), (_, q, ev_q, nxt_q) in zip(records, plain):
+            pdws_identical(p, q, f"predict {os.path.basename(path)}, "
+                                 f"kernels vs plain")
+            check(ev == ev_q and nxt == nxt_q,
+                  f"predict {os.path.basename(path)}: event differs from "
+                  f"the plain run")
+        check(pred.events == pred_plain.events, "predict: events differ")
+        check(len(pred.events) >= 1 and min(abs(e - 0.1) for e in
+                                            pred.events) < 0.02,
+              f"predict: no event within 0.02 s of 0.1 s: {pred.events}")
+        widths = np.concatenate([p["pw"] for _, p, _, _ in records])
+        check(widths.size > 0 and float(widths.max()) * EVENT_FS + 1
+              <= psk.SMEM_KEYS_PER_WARP,
+              "predict: a pulse longer than a warp's shared memory")
+
+        # the CLI in a process of its own: the same lines
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "sdr_channelizer_tpu_torch", "predict",
+             *files], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"predict CLI: exit {res.returncode}: "
+                                   f"{res.stderr[-2000:]}")
+        want = [f"{path}: event at +{ev:.6f}s, next predicted +{nxt:.6f}s"
+                if nxt is not None else f"{path}: gated out / too few pulses"
+                for path, _, ev, nxt in records]
+        got_lines = res.stdout.splitlines()
+        check(got_lines[:len(want)] == want,
+              f"predict CLI: lines differ from the in-process run: "
+              f"{got_lines[:3]} vs {want[:3]}")
+
+        # per file on the card: the capture loaded, then extract
+        pipe = WidebandPdwPipeline(cfg, DEVICE)
+        per_file = []
+        for path in files:
+            iq, meta = load_capture(path)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.extract(iq, fs=float(meta["fs"]))
+            torch.cuda.synchronize()
+            per_file.append(time.perf_counter() - t0)
+        x = torch.as_tensor(iq, device=DEVICE)
+        step = time_ms(lambda: pipe.forward(x), reps=5)
+    emit("predict", files=PREDICT_FILES, samples_per_file=rec.dwell_samples,
+         fs=EVENT_FS, max_pulses=cfg.max_pulses,
+         max_pulse_samples=cfg.max_pulse_samples,
+         pulses=[len(p["toa"]) for _, p, _, _ in records],
+         events=pred.events, next_event=records[-1][3] if records else None,
+         equals_plain=True, cli_lines_equal=True, record_s=record_s,
+         predict_files_s=wall, cli_s=cli_s, extract_s_per_file=per_file,
+         step_ms=step, longest_pulse_samples=int(round(
+             float(widths.max()) * EVENT_FS)) + 1, launches=launches)
+    return {"pulse_stats_long_window": launches["pulse_stats_long_window"]}
+
+
+def phase_track():
+    """The closed loop on the card: ``EventTracker`` on
+    ``DeviceDwellEmitter`` in the dense scene, 20 dwells of 80 ms at 56
+    Msps; the step timed on the host clock with a CUDA sync; the scan period
+    recovered; one dwell's event core on the card against the CPU."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.capture import (
+        DeviceDwellEmitter, EventTracker)
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+
+    def tracker():
+        return EventTracker(radio=DeviceDwellEmitter(
+            sample_rate_sps=EVENT_FS, **DENSE_SCENE, device=DEVICE),
+            dwell_sec=DWELL_SEC, device=DEVICE)
+
+    tracker().run(2)  # warm-up: allocator, first launches
+    tr = tracker()
+    steps, reports = [], []
+    for _ in range(TRACK_DWELLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports.append(tr.step())
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    ev = np.asarray(tr.events)
+    check(ev.size > 0, "track: no event fitted")
+    period = SCAN["scan_period_sec"]
+    err = np.abs(((ev - SCAN["scan_phase_sec"] + period / 2) % period)
+                 - period / 2)
+    check(float(np.median(err)) < 0.02,
+          f"track: median phase error {float(np.median(err)):.4f} s")
+
+    n = int(round(DWELL_SEC * EVENT_FS))
+    (xr, xi), _ = DeviceDwellEmitter(sample_rate_sps=EVENT_FS, **DENSE_SCENE,
+                                     device=DEVICE).receive(n, start_time=0.06)
+    cfg = PdwConfig.event()
+    a = pdwmod.batch_to_host(pdwmod.extract_pdws_event_planes(xr, xi, cfg))
+    b = pdwmod.batch_to_host(pdwmod.extract_pdws_event_planes(
+        xr.cpu(), xi.cpu(), cfg))
+    for key in ("toa_idx", "te_idx", "count", "valid", "saturated"):
+        check(np.array_equal(getattr(a, key), getattr(b, key)),
+              f"track: event core {key} differs between card and CPU")
+    check(np.allclose(a.mag, b.mag, rtol=EVENT_MAG_RTOL, atol=0),
+          "track: event core mag differs between card and CPU")
+    check(int(a.count) > 100, f"track: {int(a.count)} pulses in a dense dwell")
+    p50, p95 = np.percentile(steps, [50, 95])
+    emit("track", dwells=TRACK_DWELLS, dwell_ms=DWELL_SEC * 1e3,
+         samples=TRACK_DWELLS * n, fs=EVENT_FS, scene="dense",
+         step_ms_p50=float(p50), step_ms_p95=float(p95), step_ms=steps,
+         pulses=[r.num_pulses for r in reports], events=ev.tolist(),
+         median_phase_err_s=float(np.median(err)),
+         core_card_equals_cpu=True, core_pulses=int(a.count),
+         core_mag_max_rel_err=float(np.max(np.abs(a.mag - b.mag)
+                                           / np.maximum(np.abs(b.mag), 1e-30))),
+         counters=tr.counters.snapshot()["counters"])
+
+
 def profile_step(label: str, fn, steps: int = 5) -> None:
     """Device time by kernel name over a few calls of ``fn``, from
     ``torch.profiler``, as one ``profile`` line."""
@@ -1736,6 +2103,42 @@ def phase_cli():
                    "8192", "--device", DEVICE, "--out", out])
         check(rc == 0, f"cli wideband: exit code {rc}")
         pw = dict(np.load(out))
+
+        # the capture tier: record (in-process emulator), predict on the
+        # recorded dwells, track three dwells, gain-search
+        rec = os.path.join(tmp, "rec")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = main(["record", "1000", "8", "2", "62", "0.01", "0.03", "0",
+                       "--out-dir", rec, "--offset-mhz", "0.31", "--pw-us",
+                       "100", "--pri-us", "2000", "--noise-db", "-55",
+                       "--python-emulator"])
+        recorded = said.getvalue().split()
+        check(rc == 0 and len(recorded) == 3,
+              f"cli record: exit {rc}, {len(recorded)} files")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = main(["predict", *recorded, "--max-pulse-samples", "4096",
+                       "--device", DEVICE])
+        predicted = said.getvalue()
+        check(rc == 0 and "Next event:" in predicted,
+              f"cli predict: exit {rc}: {predicted[-300:]}")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = main(["track", "1000", "8", "1", "60", "0.08", "0.24",
+                       "--offset-mhz", "0.1", "--pw-us", "10", "--pri-us",
+                       "5000", "--noise-db", "-55", "--amplitude", "0.9",
+                       "--device", DEVICE])
+        tracked = said.getvalue().splitlines()
+        check(rc == 0 and len(tracked) == 3
+              and all("pulses=" in t for t in tracked),
+              f"cli track: exit {rc}: {tracked}")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = main(["gain-search", "1000", "8", "1", "64", "0.002", "0.02",
+                       "--offset-mhz", "0.13", "--noise-db", "-300"])
+        check(rc == 0 and "Max unsaturated gain: 59.0 dB" in said.getvalue(),
+              f"cli gain-search: exit {rc}")
     starts = pulse_starts(spec)
     sel = (p["snr"] > 25) & (np.abs(p["freq"] - spec.frequency_hz) < 0.5e6)
     check(int(sel.sum()) == len(starts),
@@ -1754,7 +2157,8 @@ def phase_cli():
           "cli wideband: TOA, width or frequency off the truth")
     emit("cli", pulses=int(len(p["toa"])), in_tone_bin=int(sel.sum()),
          sent=int(len(starts)), stream_pulses=int(len(ps["toa"])),
-         wideband_pulses=int(len(pw["toa"])))
+         wideband_pulses=int(len(pw["toa"])), recorded=len(recorded),
+         predict=predicted.splitlines()[-1], track=tracked)
 
 
 def main() -> int:
@@ -1788,14 +2192,19 @@ def main() -> int:
         kernels_flat_complex_main_shape(xq, caps["dense"], pipe, rows)
         del xq
         torch.cuda.empty_cache()
+        kernels_long_window(rows)
         emit("kernels", small_shapes=small, main_shape="M=64 T=262144, dense "
              "capture", block_shape=f"M=64 T={BLOCK_FRAMES + HALO_FRAMES}, "
-             "block 1 of the dense capture",
+             "block 1 of the dense capture", long_window_shape="M=1 "
+             "T=4480000, one predict dwell at the beam's peak",
              checked=[r["name"] for r in rows])
         launches = phase_main_path(pipe, caps)
         launches.update(phase_streaming(pipe, caps))
         launches.update(phase_routes(pipe, caps))
         launches.update(phase_wideband(rows))
+        launches.update(phase_stats_batch(pipe, caps))
+        launches.update(phase_predict())
+        phase_track()
         if "--profile" in sys.argv[1:]:
             phase_profile(pipe, caps)
             phase_profile_streaming(pipe, caps)

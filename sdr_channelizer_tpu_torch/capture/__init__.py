@@ -1,0 +1,29 @@
+"""Capture tier: emulated radio front-end, auto-gain search, closed-loop
+event tracker, and the wrapper of the native recorder binary.
+
+The reference's capture tier is hardware-bound C++ (bladeRF/UHD recorders,
+gain search, the real-time ``usrp_predict_event`` tracker).  Here the same
+control loops run against an emulated receiver (host NumPy, a device-side
+twin, or the native ``sdr_record_emulator`` binary for file-producing
+captures), with the DSP on the card.  The real-hardware backends are not
+ported yet; they would implement the same
+:class:`~sdr_channelizer_tpu_torch.capture.hardware.Receiver` protocol.
+"""
+
+from sdr_channelizer_tpu_torch.capture.emulator import (  # noqa: F401
+    DeviceDwellEmitter,
+    EmulatedRadio,
+    NativeEmulator,
+)
+from sdr_channelizer_tpu_torch.capture.gain_search import (  # noqa: F401
+    dwell_is_saturated,
+    find_max_unsaturated_gain,
+)
+from sdr_channelizer_tpu_torch.capture.hardware import (  # noqa: F401
+    DwellError,
+    Receiver,
+)
+from sdr_channelizer_tpu_torch.capture.tracker import (  # noqa: F401
+    DwellReport,
+    EventTracker,
+)

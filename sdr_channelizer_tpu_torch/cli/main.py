@@ -1,8 +1,10 @@
-"""CLI entry point of the port: ``generate``, ``pdw`` (wideband, or
-channelized with ``--channelized``) and ``pdw --stream [--channelized]``.
+"""CLI entry point of the port: ``generate``, ``record``, ``gain-search``,
+``pdw`` (wideband, or channelized with ``--channelized``), ``pdw --stream
+[--channelized]``, ``predict`` and ``track``.
 
-The other workflows of the JAX package's CLI are not ported yet and exit
-with an error that says so.
+The other workflows of the JAX package's CLI are not ported yet; an option
+of a ported command that is not ported yet exits with an error that says
+so.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 from typing import List, Optional
 
 import numpy as np
@@ -46,6 +49,105 @@ def cmd_generate(args) -> int:
         path = os.path.join(args.out_dir, name)
         synth.write_training_iq(path, spec, seed=args.seed + k)
         print(path)
+    return 0
+
+
+def cmd_record(args) -> int:
+    """The recorders' 7-arg contract against the emulator (the native binary
+    if built, else the in-process radio).  Host only: nothing runs on the
+    card."""
+    from sdr_channelizer_tpu_torch.capture.emulator import (
+        EmulatedRadio,
+        NativeEmulator,
+    )
+    from sdr_channelizer_tpu_torch.config import CaptureConfig
+
+    cfg = CaptureConfig(
+        frequency_mhz=args.freq_mhz, bandwidth_mhz=args.bw_mhz,
+        sample_rate_msps=args.rate_msps, rx_gain_db=args.gain_db,
+        dwell_sec=args.dwell_sec, duration_sec=args.duration_sec,
+        filter_delay_samples=args.filter_delay, bit_width=args.bit_width,
+    )
+    os.makedirs(args.out_dir, exist_ok=True)
+    native = NativeEmulator()
+    if native.available() and not args.python_emulator:
+        files = native.record(cfg, args.out_dir, offset_mhz=args.offset_mhz,
+                              pw_us=args.pw_us, pri_us=args.pri_us,
+                              noise_db=args.noise_db)
+        for f in files:
+            print(f)
+        return 0
+    import time
+
+    radio = EmulatedRadio(
+        sample_rate_sps=cfg.sample_rate_sps, tone_offset_hz=args.offset_mhz * 1e6,
+        pulse_width_sec=args.pw_us * 1e-6, pri_sec=args.pri_us * 1e-6,
+        noise_db=args.noise_db, gain_db=cfg.rx_gain_db,
+        bit_width=cfg.bit_width, start_epoch=time.time(),
+    )
+    for path in record_dwells(radio, cfg, args.out_dir):
+        print(path)
+    if args.metrics:
+        print(radio.counters.to_json())
+    return 0
+
+
+def record_dwells(radio, cfg, out_dir: str) -> List[str]:
+    """The in-process recorder: ``duration / dwell`` dwells of ``radio``
+    (the :class:`~sdr_channelizer_tpu_torch.capture.hardware.Receiver`
+    protocol), each written as a v3 ``.iq`` file named by its UTC start
+    time after dropping ``filter_delay_samples``; returns the paths."""
+    from sdr_channelizer_tpu_torch.capture.hardware import DwellError
+    from sdr_channelizer_tpu_torch.io import iqpacket
+
+    paths = []
+    n_dwells = int(cfg.duration_sec / cfg.dwell_sec)
+    for _ in range(n_dwells):
+        try:
+            iq, t0 = radio.receive(cfg.dwell_samples + cfg.filter_delay_samples)
+        except DwellError as e:
+            # drop-don't-corrupt (usrp_record_iq_12bit.cpp:201-227): log,
+            # count, keep looping; only whole dwells are written
+            print(f"dwell dropped: {e}", file=sys.stderr)
+            radio.counters.add(f"dwell_errors_{e.code}")
+            continue
+        iq = iq[cfg.filter_delay_samples:]
+        t0 += cfg.filter_delay_samples / cfg.sample_rate_sps
+        samples = iqpacket.from_complex(iq, cfg.bit_width)
+        hdr = iqpacket.IqHeader(
+            frequency_hz=cfg.frequency_mhz * 1e6, bandwidth_hz=cfg.bandwidth_mhz * 1e6,
+            sample_rate_sps=cfg.sample_rate_sps, rx_gain_db=cfg.rx_gain_db,
+            num_samples=len(iq), bit_width=cfg.bit_width, sample_start_time=t0,
+            board_name="emulated-py", serial_number="emu0",
+        )
+        path = os.path.join(out_dir, iqpacket.utc_filename(t0))
+        iqpacket.write_iq(path, hdr, samples)
+        paths.append(path)
+    return paths
+
+
+def cmd_gain_search(args) -> int:
+    """Max-unsaturated-gain search against the emulated radio (host only)."""
+    from sdr_channelizer_tpu_torch.capture import (
+        EmulatedRadio,
+        find_max_unsaturated_gain,
+    )
+    from sdr_channelizer_tpu_torch.utils.metrics import Counters
+
+    radio = EmulatedRadio(
+        sample_rate_sps=args.rate_msps * 1e6, tone_offset_hz=args.offset_mhz * 1e6,
+        gain_db=args.gain_db, rel_amplitude=args.amplitude, noise_db=args.noise_db,
+    )
+    dwell_n = int(args.dwell_sec * radio.sample_rate_sps)
+    n = int(args.duration_sec / args.dwell_sec)
+    counters = Counters()
+    final, history = find_max_unsaturated_gain(radio, dwell_n, n,
+                                               counters=counters)
+    for gain, sat in history:
+        print(f"gain {gain:5.1f} dB  {'SATURATED' if sat else 'ok'}")
+    print(f"Max unsaturated gain: {final:.1f} dB")
+    if args.metrics:
+        print(counters.to_json())
     return 0
 
 
@@ -168,6 +270,114 @@ def cmd_pdw(args) -> int:
     return _save_pdws(args, all_pdws)
 
 
+def predict_files(paths, cfg, device=None, plain: bool = False):
+    """``predict_event.m``'s loop over captures: wideband extraction of each
+    file (``WidebandPdwPipeline``, TOAs relative to the first file's start),
+    then the per-file quadratic fit and the next-event estimate.  Returns
+    ``(records, predictor, base_time)``, a record ``(path, pdws, event,
+    next_event)`` per file, ``event`` and ``next_event`` None where the file
+    was gated out or had too few pulses.  ``plain=True`` runs the kernels'
+    plain versions on the same device, for checking one against the
+    other."""
+    from sdr_channelizer_tpu_torch.dsp.events import EventPredictor
+    from sdr_channelizer_tpu_torch.io.convert import load_capture
+    from sdr_channelizer_tpu_torch.models import WidebandPdwPipeline
+
+    pipe = WidebandPdwPipeline(pdw_cfg=cfg, device=device)
+    pred = EventPredictor()
+    base_time = None
+    records = []
+    for path in paths:
+        iq, meta = load_capture(path)
+        t0 = float(meta.get("sampleStartTime", 0.0))
+        if base_time is None:
+            base_time = t0
+        pdws = pipe.extract(iq, fs=float(meta["fs"]),
+                            sample_start_time=t0 - base_time, plain=plain)
+        nxt = pred.update(pdws["toa"], pdws["snr"],
+                          max_abs_iq=float(np.max(np.abs(iq))))
+        records.append((path, pdws, None if nxt is None else pred.events[-1],
+                        nxt))
+    return records, pred, base_time
+
+
+def cmd_predict(args) -> int:
+    """predict_event.m parity: per-file quadratic fits -> next-event time."""
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+
+    if args.png:
+        raise _not_ported("predict --png (the plots of viz/)")
+    cfg = PdwConfig.event(max_pulses=args.max_pulses,
+                          max_pulse_samples=args.max_pulse_samples)
+    records, _, base_time = predict_files(args.files, cfg, device=args.device)
+    next_event = None
+    for path, _, event, nxt in records:
+        if nxt is not None:
+            next_event = nxt
+            print(f"{path}: event at +{event:.6f}s, "
+                  f"next predicted +{nxt:.6f}s")
+        else:
+            print(f"{path}: gated out / too few pulses")
+    if next_event is not None:
+        print(f"Next event: {base_time + next_event:.6f} (epoch)")
+    return 0
+
+
+def cmd_track(args) -> int:
+    """usrp_predict_event parity against the emulated radio."""
+    from sdr_channelizer_tpu_torch.capture import EmulatedRadio, EventTracker
+
+    radio = EmulatedRadio(
+        sample_rate_sps=args.rate_msps * 1e6, tone_offset_hz=args.offset_mhz * 1e6,
+        pulse_width_sec=args.pw_us * 1e-6, pri_sec=args.pri_us * 1e-6,
+        gain_db=args.gain_db, rel_amplitude=args.amplitude, noise_db=args.noise_db,
+        scan_period_sec=args.scan_period_sec, scan_phase_sec=args.scan_phase_sec,
+        scan_curvature_db_per_s2=args.scan_curvature,
+    )
+    tracker = EventTracker(radio=radio, dwell_sec=args.dwell_sec,
+                           device=args.device)
+    n = int(args.duration_sec / args.dwell_sec)
+    for rep in tracker.run(n):
+        line = (f"t={rep.start_time:9.3f}s pulses={rep.num_pulses:4d} "
+                f"gain={rep.gain_db:5.1f}dB")
+        if rep.event_time is not None:
+            line += f" event={rep.event_time:9.3f}s"
+        if rep.next_event_time is not None:
+            line += f" next={rep.next_event_time:9.3f}s"
+        if rep.saturated:
+            line += " SATURATED"
+        print(line)
+    if args.metrics:
+        import json
+
+        print(json.dumps({"tracker": tracker.counters.snapshot(),
+                          "radio": radio.counters.snapshot()}, sort_keys=True))
+    return 0
+
+
+def _add_capture_args(p):
+    p.add_argument("--metrics", action="store_true",
+                   help="print a structured-counters JSON line at exit")
+    p.add_argument("freq_mhz", type=float)
+    p.add_argument("bw_mhz", type=float)
+    p.add_argument("rate_msps", type=float)
+    p.add_argument("gain_db", type=float)
+    p.add_argument("dwell_sec", type=float)
+    p.add_argument("duration_sec", type=float)
+    p.add_argument("--offset-mhz", type=float, default=5.0)
+    p.add_argument("--pw-us", type=float, default=100.0)
+    p.add_argument("--pri-us", type=float, default=1000.0)
+    p.add_argument("--noise-db", type=float, default=-60.0)
+    p.add_argument("--amplitude", type=float, default=1.0)
+
+
+def _add_device_arg(p):
+    p.add_argument("--device", default=None,
+                   help="torch device; default: the CUDA device (an error "
+                        "when there is none); 'cpu' runs the plain PyTorch "
+                        "versions of the kernels")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="sdr_channelizer_tpu_torch",
@@ -188,6 +398,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--pri-us", type=float, default=1000.0)
     p.add_argument("--noise-std", type=float, default=0.0)
     p.set_defaults(fn=cmd_generate)
+
+    p = sub.add_parser("record", help="emulated recorder (7-arg CLI contract)")
+    _add_capture_args(p)
+    p.add_argument("filter_delay", type=int, nargs="?", default=0)
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--bit-width", type=int, default=12)
+    p.add_argument("--python-emulator", action="store_true")
+    p.set_defaults(fn=cmd_record)
+
+    p = sub.add_parser("gain-search", help="max-unsaturated-gain search")
+    _add_capture_args(p)
+    p.set_defaults(fn=cmd_gain_search)
 
     p = sub.add_parser("pdw", help="extract pulse descriptor words")
     p.add_argument("files", nargs="+")
@@ -210,12 +432,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="per-block checkpoint/resume directory (--stream)")
     p.add_argument("--metrics", action="store_true",
                    help="print a structured-counters JSON line (--stream)")
-    p.add_argument("--device", default=None,
-                   help="torch device; default: the CUDA device (an error "
-                        "when there is none); 'cpu' runs the plain PyTorch "
-                        "versions of the kernels")
+    _add_device_arg(p)
     p.add_argument("--out", default=None)
     p.set_defaults(fn=cmd_pdw)
+
+    p = sub.add_parser("predict", help="offline event prediction over captures")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--max-pulses", type=int, default=512)
+    p.add_argument("--max-pulse-samples", type=int, default=65536)
+    p.add_argument("--png", default=None, help="(not ported yet)")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("track", help="closed-loop event tracker (emulated)")
+    _add_capture_args(p)
+    p.add_argument("--scan-period-sec", type=float, default=0.5)
+    p.add_argument("--scan-phase-sec", type=float, default=0.1)
+    p.add_argument("--scan-curvature", type=float, default=2000.0)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_track)
 
     args = ap.parse_args(argv)
     return args.fn(args)

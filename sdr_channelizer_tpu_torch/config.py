@@ -1,7 +1,8 @@
 """Typed configuration of the port (the JAX package's names and defaults).
 
-Only the configs the ported slice needs live here so far:
-``ChannelizerConfig`` and ``PdwConfig``.  There are no static-shape knobs:
+The configs the ported slices need: ``ChannelizerConfig``, ``PdwConfig``,
+``EventConfig``, ``CaptureConfig`` and ``GainSearchConfig``
+(``SpectrogramConfig`` waits with the spectrogram).  There are no static-shape knobs:
 PyTorch runs eagerly, so ``max_pulses`` / ``max_pulse_samples`` are plain
 capacity bounds of the emitted batch, not compile-time shapes.
 """
@@ -77,3 +78,59 @@ class PdwConfig:
     def event(cls, **kw) -> "PdwConfig":
         """20 dB, no hysteresis (``predict_event.m:65-66``)."""
         return cls(snr_threshold_db=20.0, trailing_threshold_db=None, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class EventConfig:
+    """Event prediction configuration (``matlab/predict_event.m``).
+
+    * quadratic fit of PDW SNR vs TOA; event time = parabola peak
+      (``predict_event.m:125-130``; ``usrp_predict_event.cpp:28-52``)
+    * next event = last event + median(diff(events)); bootstrap period used
+      before >=2 events exist (``predict_event.m:134-138``)
+    * a capture participates only if max |iq| > amplitude_gate
+      (``predict_event.m:53``)
+    * the real-time tracker requires min_pulses_for_fit pulses
+      (``usrp_predict_event.cpp:348``) and min_events_for_pri events
+      (``usrp_predict_event.cpp:354``)
+    """
+
+    amplitude_gate: float = 0.9
+    bootstrap_period_sec: float = 4.61962892466417  # predict_event.m:137
+    min_pulses_for_fit: int = 10  # usrp_predict_event.cpp:348
+    min_events_for_pri: int = 5  # usrp_predict_event.cpp:354
+
+
+@dataclasses.dataclass(frozen=True)
+class CaptureConfig:
+    """The reference recorders' 7-positional-argument CLI contract
+    (``blade_record_iq_12bit.cpp:31-48``, ``usrp_record_iq_12bit.cpp:24-30``).
+    """
+
+    frequency_mhz: float
+    bandwidth_mhz: float
+    sample_rate_msps: float
+    rx_gain_db: float
+    dwell_sec: float
+    duration_sec: float
+    filter_delay_samples: int = 0
+    bit_width: int = 12
+
+    @property
+    def sample_rate_sps(self) -> float:
+        return self.sample_rate_msps * 1e6
+
+    @property
+    def dwell_samples(self) -> int:
+        return int(round(self.dwell_sec * self.sample_rate_sps))
+
+
+@dataclasses.dataclass(frozen=True)
+class GainSearchConfig:
+    """Max-unsaturated-gain search (``blade_find_max_unsaturated_gain.cpp``):
+    receive a dwell, scan for any sample >= saturation_fraction * full scale,
+    decrement gain by gain_step_db and repeat until duration elapses
+    (``:227-274``)."""
+
+    saturation_fraction: float = 0.98
+    gain_step_db: float = 1.0

@@ -23,7 +23,9 @@ path's tail) and ``_extract_channelized_pallas_stats`` (the tail of the
 streamed block, of the flat and cm routes and of wideband extraction, which
 is its one-channel case) consume detection streams and run the latch, the
 flip, the rank search and the per-pulse statistics through the hand-written
-kernels (``ops.cuda``).
+kernels (``ops.cuda``).  ``_extract_event_core`` is the real-time
+tracker's event-mode extractor (one threshold, no memory, mean amplitudes
+from prefix sums, no window), plain PyTorch on any device.
 
 ``stats`` chooses the tail where an entry point offers it (the values keep
 the names of the JAX package): ``"pallas"`` is the kernel tail, ``"xla"``
@@ -62,6 +64,11 @@ from sdr_channelizer_tpu_torch.ops.rank_find import find_ranks_cm
 # Closed pulses up to this many samples go through the statistics kernel
 # with this window; longer ones with ``max_pulse_samples``.
 _SHORT_WINDOW = 128
+# Tiles of 128 slots a batch of the statistics kernel, passed as
+# ``batch_tiles`` by every statistics call of the kernel tails: 0 or 1 runs
+# the per-slot kernel K4, above 1 the batched kernel B10 over the live tiles
+# (the JAX package's knob of the same name; the same values either way).
+_STATS_BATCH = 1
 
 _RAD2DEG = float(np.float32(180.0 / np.pi))
 
@@ -536,7 +543,8 @@ def _extract_channelized_cm2(
     def tier(sel, window):
         return ops.pulse_stats(
             mag_cm, dph_cm, torch.where(sel, toa_idx, sentinel),
-            torch.where(sel, te_idx, sentinel), window, t_len)
+            torch.where(sel, te_idx, sentinel), window, t_len,
+            batch_tiles=_STATS_BATCH)
 
     if w > _SHORT_WINDOW:
         is_tiny = closed & (plen <= 2)
@@ -550,7 +558,7 @@ def _extract_channelized_cm2(
                               torch.where(is_short, s_dph, l_dph))
     else:
         med_mag, med_dph = ops.pulse_stats(mag_cm, dph_cm, toa_idx, te_idx,
-                                           w, t_len)
+                                           w, t_len, batch_tiles=_STATS_BATCH)
 
     snr = 10.0 * torch.log10(med_mag / noise_floor[:, None])
     zero = mag_cm.new_zeros(())
@@ -691,7 +699,7 @@ def _extract_channelized_pallas_stats(
                 mag_cm, dph_cm, sat_cm,
                 torch.where(sel, toa_idx, sentinel).reshape(-1),
                 torch.where(sel, te_idx, sentinel).reshape(-1), chan, window,
-                t_len)
+                t_len, batch_tiles=_STATS_BATCH)
             return [o.reshape(m, p_slots) for o in outs]
 
         shorts, longs = tier(is_short, _SHORT_WINDOW), tier(is_long, w)
@@ -702,7 +710,7 @@ def _extract_channelized_pallas_stats(
     else:
         med_mag, med_dph, sat_any = ops.pulse_stats(
             mag_cm, dph_cm, toa_idx.contiguous(), te_idx.contiguous(), w,
-            t_len, sat_cm)
+            t_len, sat_cm, batch_tiles=_STATS_BATCH)
 
     snr = 10.0 * torch.log10(med_mag / noise_floor[:, None])
     zero = mag.new_zeros(())
@@ -789,6 +797,151 @@ def _extract_wideband_blocked(
     return PdwBatch(
         count=torch.tensor(total, dtype=torch.int32, device=mag.device),
         **{n: padded(n) for n in names})
+
+
+def _extract_event_core(
+    mag: torch.Tensor,
+    sat: torch.Tensor,
+    noise_floor: torch.Tensor,
+    snr_threshold_db: float,
+    max_pulses: int,
+    block: int = 512,
+) -> PdwBatch:
+    """Real-time event-mode wideband extraction: the C++ tracker's per-pulse
+    statistics (``usrp_predict_event.cpp:300-343``), on (T,) streams.
+
+    * The latch has one threshold and no memory: ``state[t] = mag[t] >
+      thresh``.
+    * Pulse amplitude is the **mean** magnitude over ``[toa, te)`` (the
+      trailing-edge sample excluded), not the offline median, so there is no
+      window: means come from two-level prefix sums (``block``-sample partial
+      sums, a cumsum of the block sums, one gathered block per rank).
+    * Saturation is any flagged sample strictly inside the pulse; no
+      frequency is measured.  A pulse still open at capture end is not
+      emitted.
+
+    Plain PyTorch on any device: float32 sums within blocks, the prefix
+    across blocks in float64 (the JAX package keeps it in float32; the C++
+    loop accumulates ``double amp``); ``pw_sec`` in samples and a zero
+    ``freq_offset_hz``, as the other cores.
+    """
+    dev = mag.device
+    t_len = mag.shape[-1]
+    pad = (-t_len) % block
+    thresh = noise_floor * 10.0 ** (snr_threshold_db / 10.0)
+    state = mag > thresh
+    prev = torch.cat([state.new_zeros(1), state[:-1]])
+    lead = (state & ~prev).to(torch.float32)
+    trail = (~state & prev).to(torch.float32)
+
+    def padded(x):
+        return torch.cat([x, x.new_zeros(pad)]) if pad else x
+
+    # A trailing edge in the pad would land at >= t_len and is masked by
+    # `closed`: a pulse open at capture end is never emitted.
+    n_b = (t_len + pad) // block
+    lead_b = padded(lead).reshape(n_b, block)
+    trail_b = padded(trail).reshape(n_b, block)
+    mag_b = padded(mag).reshape(n_b, block)
+    sat_b = padded(sat.to(torch.float32)).reshape(n_b, block)
+    ranks = torch.arange(1, max_pulses + 1, dtype=torch.float32, device=dev)
+    pos = torch.arange(block, dtype=torch.float32, device=dev)
+
+    def rank_positions(bits_b):
+        """Index of the r-th set bit (r = 1..max_pulses), ``t_len`` when
+        absent: block-end cumsum compare, then one partial block."""
+        bcum = torch.cumsum(bits_b.sum(dim=1), 0)  # (n_b,) inclusive
+        full = (bcum[None, :] < ranks[:, None]).sum(dim=1)
+        idx = full.clamp(max=n_b - 1)
+        part = bits_b[idx]  # (R, block)
+        base = torch.where(idx > 0, bcum[(idx - 1).clamp(min=0)],
+                           torch.zeros((), device=dev))
+        lc = torch.cumsum(part, dim=1)
+        within = (lc < (ranks - base)[:, None]).sum(dim=1)
+        return torch.clamp(idx * block + within, max=t_len).to(torch.int32)
+
+    toa_idx = rank_positions(lead_b)
+    te_idx = rank_positions(trail_b)
+    closed = (toa_idx < t_len) & (te_idx < t_len)
+    count = torch.clamp(trail.sum(), max=max_pulses).to(torch.int32)
+    valid = (torch.arange(max_pulses, device=dev) < count) & closed
+
+    def span_fn(vals_b):
+        """``(p0, p1) -> sum(vals[p0:p1])``: the block partials' prefix
+        plus one gathered block at each end.  The prefix over blocks is
+        float64: in float32 its ulp at a dwell's running sum (0.002 at 4.48
+        M samples) is a part in 10^4 of a short pulse's sum, and the
+        difference of two prefixes would carry it."""
+        bsum_ex = torch.cat([
+            torch.zeros(1, dtype=torch.float64, device=dev),
+            torch.cumsum(vals_b.sum(dim=1).to(torch.float64), 0)[:-1]])
+
+        def at(p):
+            blk = torch.clamp(p // block, max=n_b - 1).to(torch.int64)
+            within = (p - blk * block).to(torch.float32)
+            rows = torch.where(pos[None, :] < within[:, None], vals_b[blk],
+                               torch.zeros((), device=dev))
+            return bsum_ex[blk], rows.sum(dim=1)
+
+        def span(p0, p1):
+            (b0, r0), (b1, r1) = at(p0), at(p1)
+            return (b1 - b0).to(torch.float32) + (r1 - r0)
+        return span
+
+    safe_toa = torch.clamp(toa_idx, max=t_len - 1)
+    safe_te = torch.clamp(te_idx, max=t_len - 1)
+    amp = span_fn(mag_b)(safe_toa, safe_te) / torch.clamp(
+        (safe_te - safe_toa).to(torch.float32), min=1.0)
+    # interior samples toa+1 .. te-1 (both edge samples excluded)
+    sat_cnt = span_fn(sat_b)(torch.clamp(safe_toa + 1, max=t_len - 1),
+                             safe_te)
+    snr = 10.0 * torch.log10(amp / noise_floor)
+
+    zero = torch.zeros((), device=dev)
+    return PdwBatch(
+        toa_idx=torch.where(valid, toa_idx, -1),
+        te_idx=torch.where(valid, te_idx, -1),
+        pw_sec=torch.where(valid, (te_idx - toa_idx).to(torch.float32), zero),
+        mag=torch.where(valid, amp, zero),
+        snr_db=torch.where(valid, snr, zero),
+        freq_offset_hz=torch.zeros(max_pulses, device=dev),
+        saturated=valid & (sat_cnt > 0.5),
+        valid=valid,
+        count=count,
+    )
+
+
+def _event_streams(mag, sat, cfg: PdwConfig, noise_floor):
+    if noise_floor is None:
+        noise_floor = mag.mean()
+    return _extract_event_core(mag, sat, noise_floor, cfg.snr_threshold_db,
+                               cfg.max_pulses)
+
+
+def extract_pdws_event(
+    iq: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+) -> PdwBatch:
+    """Wideband event-mode extraction from a complex capture: the mean
+    noise floor (``usrp_predict_event.cpp:288-289``) and
+    :func:`_extract_event_core`.  The real-time tracker's extraction."""
+    mag = iq.abs()
+    sat = ((iq.real.abs() >= cfg.saturation_level)
+           | (iq.imag.abs() >= cfg.saturation_level))
+    return _event_streams(mag, sat, cfg, noise_floor)
+
+
+def extract_pdws_event_planes(
+    yr: torch.Tensor,
+    yi: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+) -> PdwBatch:
+    """:func:`extract_pdws_event` from two float planes."""
+    mag = torch.sqrt(yr * yr + yi * yi)
+    sat = (yr.abs() >= cfg.saturation_level) | (yi.abs() >= cfg.saturation_level)
+    return _event_streams(mag, sat, cfg, noise_floor)
 
 
 def finalize_pdws(

@@ -1,4 +1,5 @@
-"""Capture loading for the port: ``.iq`` containers only so far."""
+"""Capture loading for the port: ``.iq`` containers only so far (the
+``.npz``, ``.mat`` and ``.bin`` readers are not ported yet)."""
 
 from __future__ import annotations
 
@@ -29,6 +30,23 @@ def header_vars(hdr: iqpacket.IqHeader) -> dict:
     }
 
 
+def _iq_only(path) -> str:
+    p = os.fspath(path)
+    if not p.endswith(".iq"):
+        raise NotImplementedError(
+            f"not ported yet: only .iq captures are supported, got {p!r}")
+    return p
+
+
+def load_capture(path) -> Tuple[np.ndarray, dict]:
+    """``.iq`` file -> ``(complex64 iq, metadata)``: the samples normalised
+    by the bit width, the header under the reference's variable names
+    (``fs``, ``fc``, ``sampleStartTime``, ...)."""
+    hdr, samples = iqpacket.read_iq(_iq_only(path))
+    return iqpacket.to_complex(np.asarray(samples), hdr.bit_width), \
+        header_vars(hdr)
+
+
 def load_capture_raw(path) -> Tuple[np.ndarray, int, dict]:
     """``.iq`` file -> ``(samples (N, 2) int8/int16, bit_width, metadata)``.
 
@@ -37,9 +55,5 @@ def load_capture_raw(path) -> Tuple[np.ndarray, int, dict]:
     the device untouched and the dequantization happens in the kernel.
     Other containers (``.npz``, ``.mat``, ``.bin``) are not ported yet.
     """
-    p = os.fspath(path)
-    if not p.endswith(".iq"):
-        raise NotImplementedError(
-            f"not ported yet: only .iq captures are supported, got {p!r}")
-    hdr, samples = iqpacket.read_iq(p)
+    hdr, samples = iqpacket.read_iq(_iq_only(path))
     return np.asarray(samples), hdr.bit_width, header_vars(hdr)

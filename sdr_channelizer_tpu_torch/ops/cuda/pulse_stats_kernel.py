@@ -1,11 +1,19 @@
-"""Kernel K4: per-pulse median magnitude, median phase difference and,
-with a saturation mask, the saturated flag.
+"""Kernels K4 and B10: per-pulse median magnitude, median phase
+difference and, with a saturation mask, the saturated flag.
 
 The counterparts of ``pulse_stats`` (a slot grid, row = channel) and
 ``pulse_stats_dense`` (a flat slot list with a channel per slot) of the JAX
 package.  Both launch the CUDA selection (``csrc/pulse_stats.cu``) for CUDA
 tensors, or raise; for CPU tensors they take ``pulse_stats_plain`` /
 ``pulse_stats_dense_plain``, a gather of the windows and a sort.
+
+``batch_tiles`` chooses the kernel as the JAX package does
+(:func:`batched_tiles`): where it gives more than one tile of 128 slots a
+batch, the batched kernel B10 runs over the compacted list of live tiles,
+else the per-slot kernel K4.  The two give the same bits, and the plain
+versions take ``batch_tiles`` and ignore it.  Any window is taken: a pulse
+longer than a warp's stretch of shared memory (``SMEM_KEYS_PER_WARP``
+samples) is selected from device memory.
 
 All give, for a dead slot (``toa`` outside ``[0, t_len)``), 0 in every
 output, and NaN for a live slot whose range is empty (the phase
@@ -24,10 +32,27 @@ import torch
 from sdr_channelizer_tpu_torch.ops.cuda import _build
 from sdr_channelizer_tpu_torch.ops.medians import masked_median
 
-launches = 0        # times pulse_stats launched the CUDA kernel
-launches_dense = 0  # times pulse_stats_dense launched it
+launches = 0                # times pulse_stats launched K4
+launches_dense = 0          # times pulse_stats_dense launched K4
+launches_batched = 0        # times pulse_stats launched B10
+launches_dense_batched = 0  # times pulse_stats_dense launched B10
+# launches of either kernel whose window exceeds a warp's stretch of shared
+# memory (its pulses longer than the stretch are selected from device memory)
+launches_long_window = 0
 
-_SMEM_MAX = 227 * 1024
+TILE = 128                 # slots a tile, as the JAX kernel's
+SMEM_KEYS_PER_WARP = 4096  # a warp's stretch of shared memory, in keys
+_BLOCK_KEYS = 16384        # keys a block holds: 64 KB of shared memory
+
+
+def batched_tiles(batch_tiles: int, window: int, n_slots: int) -> int:
+    """Tiles a batch of the batched kernel (``_pulse_stats_flat`` of the JAX
+    package): ``batch_tiles`` (0 means 1), at most ``48 // rows`` with
+    ``rows = ceil(window / 128) + 1``, at most the slot list's tiles.  B10
+    runs where this is above 1, K4 elsewhere."""
+    rows = (window + TILE - 1) // TILE + 1
+    n_tiles = max(1, (n_slots + TILE - 1) // TILE)
+    return min(max(batch_tiles, 1), max(1, 48 // rows), n_tiles)
 
 
 def _check_streams(mag_cm, dph_cm, sat_cm, window, t_len):
@@ -70,10 +95,13 @@ def _check_args_dense(mag_cm, dph_cm, sat_cm, toa, te, chan, window, t_len):
 
 def _stats_plain(mag_cm, dph_cm, sat_cm, toa, te, rows, window, t_len):
     """Medians (and the flag) of flat slots: ``rows`` is each slot's row of
-    the streams.  Slots are gathered as (P, window) windows."""
+    the streams.  Slots are gathered as (P, window) windows, the window cut
+    at the longest live pulse (a bound on memory, not on the values)."""
     toa_l, te_l = toa.to(torch.int64), te.to(torch.int64)
     live = (toa_l >= 0) & (toa_l < t_len)
     plen = torch.clamp(te_l - toa_l + 1, max=window)
+    if live.any():
+        window = max(1, min(window, int(plen[live].max())))
     pos = torch.arange(window, device=toa.device)
     idx = toa_l[:, None] + pos                        # (P, window)
     in_any = live[:, None] & (idx < t_len)
@@ -104,8 +132,10 @@ def pulse_stats_plain(
     window: int,
     t_len: Optional[int] = None,
     sat_cm: Optional[torch.Tensor] = None,
+    batch_tiles: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of :func:`pulse_stats`."""
+    """Plain PyTorch version of :func:`pulse_stats` (``batch_tiles`` changes
+    no value)."""
     t_len = _check_args(mag_cm, dph_cm, toa, te, window, t_len, sat_cm)
     m, p_slots = toa.shape
     rows = torch.arange(m, device=toa.device).repeat_interleave(p_slots)
@@ -123,8 +153,10 @@ def pulse_stats_dense_plain(
     chan: torch.Tensor,
     window: int,
     t_len: Optional[int] = None,
+    batch_tiles: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of :func:`pulse_stats_dense`."""
+    """Plain PyTorch version of :func:`pulse_stats_dense` (``batch_tiles``
+    changes no value)."""
     t_len = _check_args_dense(mag_cm, dph_cm, sat_cm, toa, te, chan, window,
                               t_len)
     return _stats_plain(mag_cm, dph_cm, sat_cm, toa, te, chan, window, t_len)
@@ -135,19 +167,43 @@ def _library():
 
     lib = _build.load("pulse_stats")
     if not getattr(lib, "_sdr_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sdr_pulse_stats.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci,
-            ci, ci, vp]
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        common = [vp] * 9 + [cll, ci, ci, ci, ci, ci, ci]
+        lib.sdr_pulse_stats.argtypes = common + [vp]
         lib.sdr_pulse_stats.restype = ci
+        lib.sdr_pulse_stats_batched.argtypes = common + [vp, vp, ci, ci, vp]
+        lib.sdr_pulse_stats_batched.restype = ci
         lib._sdr_typed = True
     return lib
 
 
-def _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, p_slots, window, t_len):
-    """Checks shared by both wrappers, then the kernel over ``toa.numel()``
+def _live_tiles(toa: torch.Tensor, t_len: int, nt: int):
+    """The batched kernel's list of live tiles, on the device: ``(tile_ids,
+    n_live, n_batches)``, the live tile indices in order scattered to their
+    rank (a cumsum), -1 past them, and the live count as a one-element
+    tensor; no host sync."""
+    n_slots = toa.numel()
+    n_tiles = (n_slots + TILE - 1) // TILE
+    live = (toa >= 0) & (toa < t_len)
+    if n_tiles * TILE != n_slots:
+        live = torch.cat([live, live.new_zeros(n_tiles * TILE - n_slots)])
+    live = live.view(n_tiles, TILE).any(dim=1)
+    n_batches = (n_tiles + nt - 1) // nt
+    rank = torch.cumsum(live.to(torch.int32), 0) - 1
+    dst = torch.where(live, rank, n_batches * nt).to(torch.int64)
+    tile_ids = torch.full((n_batches * nt + 1,), -1, dtype=torch.int32,
+                          device=toa.device)
+    tile_ids.scatter_(0, dst, torch.arange(n_tiles, dtype=torch.int32,
+                                           device=toa.device))
+    return tile_ids, live.sum(dtype=torch.int32).reshape(1), n_batches
+
+
+def _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, p_slots, window, t_len,
+            batch_tiles):
+    """Checks shared by both wrappers, then K4 or B10 over ``toa.numel()``
     slots; outputs in the shape of ``toa``."""
-    global launches, launches_dense
+    global launches, launches_dense, launches_batched
+    global launches_dense_batched, launches_long_window
     streams = [x for x in (mag_cm, dph_cm, sat_cm) if x is not None]
     indices = [x for x in (toa, te, chan) if x is not None]
     if len({x.device for x in streams + indices}) != 1 or not mag_cm.is_cuda:
@@ -157,29 +213,50 @@ def _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, p_slots, window, t_len):
         raise ValueError("streams must be contiguous along time, one stride")
     if not all(x.is_contiguous() for x in indices):
         raise ValueError("toa, te and chan must be contiguous")
-    if window * 4 > _SMEM_MAX:
-        raise ValueError(f"window={window} exceeds a block's shared memory")
     dev = mag_cm.device
-    outs = tuple(torch.empty(toa.shape, dtype=torch.float32, device=dev)
+    n_slots = toa.numel()
+    nt = batched_tiles(batch_tiles, window, n_slots)
+    # B10 visits live tiles only: the rest of its outputs stay zero
+    alloc = torch.zeros if nt > 1 else torch.empty
+    outs = tuple(alloc(toa.shape, dtype=torch.float32, device=dev)
                  for _ in range(2 if sat_cm is None else 3))
-    if toa.numel() == 0:
+    if n_slots == 0:
         return outs
-    warps = max(1, min(8, (64 * 1024) // (window * 4)))
+    stretch = min(window, SMEM_KEYS_PER_WARP)
+    # K4: 8 warps a block, a slot each; B10: a block is a whole batch of up
+    # to 8 * 128 slots, so it takes as many warps as its shared memory and
+    # 1024 threads allow (40 registers a thread)
+    warps = max(1, min(32 if nt > 1 else 8, _BLOCK_KEYS // stretch))
     lib = _library()
-    with torch.cuda.device(dev):
-        code = lib.sdr_pulse_stats(
-            mag_cm.data_ptr(), dph_cm.data_ptr(),
+    args = (mag_cm.data_ptr(), dph_cm.data_ptr(),
             None if sat_cm is None else sat_cm.data_ptr(), toa.data_ptr(),
             te.data_ptr(), None if chan is None else chan.data_ptr(),
             outs[0].data_ptr(), outs[1].data_ptr(),
             None if sat_cm is None else outs[2].data_ptr(),
-            mag_cm.stride(0), toa.numel(), p_slots, window, t_len, warps,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(code, "sdr_pulse_stats")
-    if chan is None:
+            mag_cm.stride(0), n_slots, p_slots, window, t_len, stretch, warps)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if nt > 1:
+            tile_ids, n_live, n_batches = _live_tiles(toa.reshape(-1), t_len,
+                                                      nt)
+            code = lib.sdr_pulse_stats_batched(
+                *args, tile_ids.data_ptr(), n_live.data_ptr(), nt, n_batches,
+                stream)
+            what = "sdr_pulse_stats_batched"
+        else:
+            code = lib.sdr_pulse_stats(*args, stream)
+            what = "sdr_pulse_stats"
+    _build.check_launch(code, what)
+    if nt > 1 and chan is None:
+        launches_batched += 1
+    elif nt > 1:
+        launches_dense_batched += 1
+    elif chan is None:
         launches += 1
     else:
         launches_dense += 1
+    if window > stretch:
+        launches_long_window += 1
     return outs
 
 
@@ -191,6 +268,7 @@ def pulse_stats(
     window: int,
     t_len: Optional[int] = None,
     sat_cm: Optional[torch.Tensor] = None,
+    batch_tiles: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """Per-slot ``(median magnitude, median phase difference)``, (M, P_slots),
     and with ``sat_cm`` a third tensor, the saturated flag.
@@ -203,7 +281,8 @@ def pulse_stats(
     toa + plen - 2``, both cut at ``t_len`` (default T).  ``sat_cm``: the
     (rows, T) 0/1 saturation mask; the flag is 1.0 where a sample of ``toa +
     1 .. toa + plen - 2`` (cut at ``t_len``) is saturated.  Any ``window``
-    that fits a block's shared memory (about 58,000 samples) is accepted.
+    is accepted.  ``batch_tiles``: see the module docstring; the slot grid
+    is tiled in row-major order.
     """
     t_len = _check_args(mag_cm, dph_cm, toa, te, window, t_len, sat_cm)
     tensors = [x for x in (mag_cm, dph_cm, sat_cm, toa, te) if x is not None]
@@ -211,7 +290,7 @@ def pulse_stats(
         return pulse_stats_plain(mag_cm, dph_cm, toa, te, window, t_len,
                                  sat_cm)
     return _launch(mag_cm, dph_cm, sat_cm, toa, te, None, toa.shape[1],
-                   window, t_len)
+                   window, t_len, batch_tiles)
 
 
 def pulse_stats_dense(
@@ -223,6 +302,7 @@ def pulse_stats_dense(
     chan: torch.Tensor,
     window: int,
     t_len: Optional[int] = None,
+    batch_tiles: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """The statistics of :func:`pulse_stats` over one flat slot list that
     mixes channels: ``toa``, ``te``, ``chan`` are (P,) int32, ``chan`` the
@@ -235,4 +315,5 @@ def pulse_stats_dense(
     if not any(x.is_cuda for x in tensors):
         return pulse_stats_dense_plain(mag_cm, dph_cm, sat_cm, toa, te, chan,
                                        window, t_len)
-    return _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, 0, window, t_len)
+    return _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, 0, window, t_len,
+                   batch_tiles)

@@ -40,6 +40,8 @@ def test_fresh_interpreter_imports_no_jax():
         "import sdr_channelizer_tpu_torch.models.pipeline\n"
         "import sdr_channelizer_tpu_torch.ops.cuda\n"
         "import sdr_channelizer_tpu_torch.dsp.pdw\n"
+        "import sdr_channelizer_tpu_torch.dsp.events\n"
+        "import sdr_channelizer_tpu_torch.capture\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdr_channelizer_tpu', 'triton')]\n"
         "assert not bad, bad\n"

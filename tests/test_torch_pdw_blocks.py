@@ -293,7 +293,7 @@ def test_streams_cm_default_floor_is_the_blocks_median(jax_block):
                                       getattr(b, field).numpy(), err_msg=field)
 
 
-def test_kernel_tail_without_cm_streams_says_not_ported(jax_block):
+def test_kernel_tail_without_cm_streams_flips_them_itself(jax_block):
     """It is ported: without ``cm_streams`` the tail makes them itself, by
     the flip of the time-major streams, and emits the batch of the same
     streams handed in ready-made."""

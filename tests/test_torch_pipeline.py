@@ -157,7 +157,7 @@ def test_recovers_the_generators_pulses():
 
 
 @pytest.mark.parametrize("route", ["cm", "flat", "cm2c", "cm2g"])
-def test_unported_routes_are_rejected(route):
+def test_routes_run_and_the_ab_knobs_do_not_carry_over(route):
     """The cm and flat routes are ported and run; the two A/B knobs of the
     JAX package's cm2 tail do not carry over and say so."""
     _, tpipe = _pipelines()
@@ -174,7 +174,7 @@ def test_unported_routes_are_rejected(route):
                             route=route)
 
 
-def test_unknown_route_and_float_payloads_are_rejected():
+def test_unknown_route_and_bad_payloads_are_rejected_float_ones_taken():
     """An unknown route and a payload that is no (N, 2) integer or float
     buffer are rejected; a float payload itself is taken (as planes)."""
     _, tpipe = _pipelines()
