@@ -22,7 +22,11 @@ ms dwells at 56 Msps of a scanning beam, written by the recorder, through
 ``predict`` in-process, against its plain run, and through the CLI) and the
 closed-loop tracker (20 dwells synthesised on the card); and runs the CLI,
 the capture commands included.  One JSON line per phase; any failure exits
-non-zero.  ``--profile`` adds phases that print the device time of a step by
+non-zero.  The small shapes include the time-major latch's scan across
+segments (a pulse over many segments, holds over whole segments, a latch
+entered active with no transfer, one channel of 2^24 - 1 samples) and the
+channelizer body with T on tile boundaries, where the look-ahead frame is
+taken.  ``--profile`` adds phases that print the device time of a step by
 kernel name and where a streamed block's time goes.  There is no CPU path:
 without a CUDA device the script exits at once with code 2 and prints no
 result.
@@ -72,6 +76,7 @@ DENSE_SCENE = dict(SCAN, pri_sec=0.5e-3, pulse_width_sec=2e-6)
 EVENT_MAG_RTOL = 2e-5   # float32 prefix sums in another order
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12      # H100 SXM, dense TF32 on the tensor cores
 
 # tolerances (the JAX package's own bars)
 MAG_TOL = 1e-5          # rtol = atol; the DFT sums in another order
@@ -189,11 +194,13 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 
 
 def kernel_row(name, source, replaces, err, exact, ms, plain_ms, library_ms,
-               n_bytes, n_flop, **extra) -> dict:
+               n_bytes, n_flop, n_flop_tc=0, **extra) -> dict:
     """One entry of the ``kernels`` line; the bound from the bytes the
-    function must move and the operations it does on these inputs."""
+    function must move and the operations it does on these inputs:
+    ``n_flop`` at the float32 rate of the CUDA cores, ``n_flop_tc`` at the
+    dense TF32 rate of the tensor cores."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_flop = n_flop / FP32_FLOP_PER_S * 1e3
+    t_flop = (n_flop / FP32_FLOP_PER_S + n_flop_tc / TF32_FLOP_PER_S) * 1e3
     return {
         "name": name, "route": "cuda",
         "source": f"sdr_channelizer_tpu_torch/ops/cuda/csrc/{source}",
@@ -203,6 +210,15 @@ def kernel_row(name, source, replaces, err, exact, ms, plain_ms, library_ms,
         "bound_ms": max(t_bytes, t_flop),
         "bound_by": "bytes" if t_bytes >= t_flop else "operations",
         "library_ms": library_ms, **extra}
+
+
+def dft_ops(m: int, p: int, t_len: int) -> dict:
+    """The channelizer's operations for ``kernel_row``: the FIR on the CUDA
+    cores, the DFT as three TF32 products of the split on the tensor cores;
+    and the bound of the first form, all of it at the float32 rate."""
+    fir, dft = t_len * 4 * p * m, t_len * 8 * m * m
+    return {"n_flop": fir, "n_flop_tc": 3 * dft,
+            "bound_fp32_ms": (fir + dft) / FP32_FLOP_PER_S * 1e3}
 
 
 def n_bytes_of(*tensors) -> int:
@@ -362,11 +378,14 @@ def kernels_small():
         check(got[2].max() > 0, f"K1 {where}: the clipped segment left no "
                                 f"saturation count")
         mag, dph, _ = got
-        # a second tile length, so the tiling itself is exercised
-        alt = k.channelize_streams_packed_cm2(xq, taps, bw, 0.9999,
-                                              tile_frames=8)
-        check(all(same(a, b) for a, b in zip(alt, got)),
-              f"K1 {where}: result depends on the tile length")
+        # other tile lengths (a tile and its look-ahead frame make a
+        # multiple of 16 rows), so the tiling itself is exercised; at M =
+        # 560 only tiles of 15 frames fit, the default
+        for ft in (15, 63) if m <= 64 else ():
+            alt = k.channelize_streams_packed_cm2(xq, taps, bw, 0.9999,
+                                                  tile_frames=ft)
+            check(all(same(a, b) for a, b in zip(alt, got)),
+                  f"K1 {where}: result depends on the tile length")
 
         # B6, the cm form: against its plain version, and the same bits as
         # K1 (one kernel body); then both forms with a history
@@ -538,6 +557,77 @@ def kernels_small_flip_flat_complex():
             check(same(c, d), f"B7 M={m}: off by {max_abs(c, d):.3g}")
         cases.append({"case": f"B7 T=5003 M={m}", "exact": True})
 
+    # B7's scan across segments (4096 frames at M = 1, 512 else): a pulse
+    # over many segments, holds over whole segments between a set and a
+    # reset, thresholds met exactly on segment boundaries, a latch entered
+    # active that sees no transfer at all; then M = 1 at T = 2^24 - 1
+    for m, t_len in ((1, 70001), (9, 9001), (64, 6001)):
+        seg = 4096 if m == 1 else 512
+        t = torch.arange(t_len, device=dev)[:, None]
+        base = torch.rand((t_len, m), device=dev, generator=gen) * 0.2
+        span = (t >= seg // 2) & (t < seg // 2 + 5 * seg + 17)
+        hold = (t >= 7 * seg + 3) & (t < t_len - 5)
+        mag = torch.where(span, base + 0.8, base)
+        mag = torch.where(hold, torch.full_like(mag, 0.5), mag)
+        mag[7 * seg + 2] = 0.95           # a set, then holds to the end
+        edges = torch.arange(seg, t_len, seg, device=dev)
+        mag[edges] = 0.6                  # on the threshold: lead == trail
+        mag[edges - 1] = 0.6
+        hi = torch.full((m,), 0.6, device=dev)
+        lo = torch.full((m,), 0.3, device=dev)
+        ent = (torch.arange(m, device=dev) % 2).float()
+        for th_t, e in ((lo, None), (lo, ent), (hi, ent)):
+            c = k.latch_cumsums(mag, hi, th_t, e)
+            d = k.latch_cumsums_plain(mag, hi, th_t, e)
+            check(same(c, d), f"B7 segments M={m} T={t_len}: off by "
+                              f"{max_abs(c, d):.3g}")
+        quiet = torch.full((t_len, m), 0.45, device=dev)   # holds only
+        c = k.latch_cumsums(quiet, hi, lo, torch.ones(m, device=dev))
+        check(same(c, k.latch_cumsums_plain(quiet, hi, lo,
+                                            torch.ones(m, device=dev)))
+              and not bool(c.any()),
+              f"B7 segments M={m}: an entered latch without a transfer")
+        cases.append({"case": f"B7 segments T={t_len} M={m}", "exact": True})
+    t_len = (1 << 24) - 1
+    t = torch.arange(t_len, device=dev)
+    mag = torch.where((t % 1_000_003) < 400_000, 0.9, 0.1)[:, None]
+    mag = mag + torch.rand((t_len, 1), device=dev, generator=gen) * 0.05
+    hi, lo = torch.full((1,), 0.6, device=dev), torch.full((1,), 0.3,
+                                                            device=dev)
+    c = k.latch_cumsums(mag, hi, lo)
+    d = k.latch_cumsums_plain(mag, hi, lo)
+    check(same(c, d) and int(c[0, -1]) == 17,
+          f"B7 M=1 T=2^24-1: off by {max_abs(c, d):.3g}")
+    del t, mag, c, d
+    cases.append({"case": f"B7 T={t_len} M=1", "exact": True})
+
+    # the channelizer body at T on tile boundaries (7440 is a multiple of
+    # every tile length the wrappers choose here: 15, 31 with the look-ahead
+    # frame, 16, 32 without): K1, B6, B5 against their plain versions, and
+    # B5's |y| = B6's = K1's, bit for bit; at M = 64 and at M = 65
+    for m in (64, 65):
+        taps = Channelizer.create(m).taps_rev
+        full = small_capture(m, 7442, 12, seed=m)
+        for frames in (7439, 7440, 7441):
+            where = f"M={m} T={frames}"
+            xq = torch.as_tensor(pack(full[:m * frames]), device=dev)
+            k1 = k.channelize_streams_packed_cm2(xq, taps, 12, 0.9999)
+            compare_streams(xq, taps, 12, 0.9999, k1, "K1 " + where)
+            cm = k.channelize_streams_packed_cm(xq, taps, 12, 0.9999)
+            compare_streams(xq, taps, 12, 0.9999, cm, "B6 " + where)
+            flat = k.channelize_streams_packed(xq, taps, 12, 0.9999)
+            compare_flat(xq, taps, 12, 0.9999, flat, "B5 " + where)
+            alt = k.channelize_streams_packed_cm2(xq, taps, 12, 0.9999,
+                                                  tile_frames=15)
+            check(same(cm[1], k1[0]) and same(cm[2], k1[1])
+                  and same(flat[0], cm[0])
+                  and all(same(a, b) for a, b in zip(alt, k1)),
+                  f"body {where}: B5, B6, K1 or another tile length do not "
+                  f"give the same bits")
+        cases.append({"case": f"body at tile boundaries M={m}",
+                      "frames": [7439, 7440, 7441],
+                      "exact_across_forms": True})
+
     # B5 and B9, packed and planes ingests, with a history
     for m, frames, bw in ((3, 777, 12), (8, 1003, 12), (56, 650, 8),
                           (64, 2049, 12)):
@@ -620,8 +710,7 @@ def kernels_flat_complex_main_shape(xq, samples, pipe, rows):
     taps = pipe.channelizer.taps_rev
     sat_level = pipe.pdw_cfg.saturation_level
     p = taps.shape[0]
-    n_flop = t_len * (4 * p * m + 8 * m * m)
-    n_w = 4 * (p * m + 2 * m * m)
+    n_w = 4 * (p * m + 4 * m * m)   # the taps and W's four split planes
 
     flat = k.channelize_streams_packed(xq, taps, BIT_WIDTH, sat_level)
     torch.cuda.synchronize()
@@ -637,7 +726,7 @@ def kernels_flat_complex_main_shape(xq, samples, pipe, rows):
             xq, taps, BIT_WIDTH, sat_level)),
         time_ms(lambda: k.channelize_streams_packed_plain(
             xq, taps, BIT_WIDTH, sat_level), reps=3, warmup=1),
-        None, n_bytes=n_bytes_of(xq, *flat) + n_w, n_flop=n_flop,
+        None, n_bytes=n_bytes_of(xq, *flat) + n_w, **dft_ops(m, p, t_len),
         mag_equals_b6=True, shape=f"M={m} T={t_len}", **res))
 
     mag, ph, sat = flat[0], flat[1], flat[2] > 0.5
@@ -647,6 +736,12 @@ def kernels_flat_complex_main_shape(xq, samples, pipe, rows):
     b = k.latch_cumsums_plain(mag, lead, trail)
     check(same(a, b), f"B7 flat-route shape: off by {max_abs(a, b):.3g}")
     check(float(a[:m, -1].sum()) > 0, "B7 flat-route shape: no edge counted")
+    # B7's row (the block shape) carries this shape too
+    b7 = next(r for r in rows if r["name"] == "latch_cumsums")
+    b7["route_shape"] = {
+        "shape": f"M={m} T={t_len}",
+        "ms": time_ms(lambda: k.latch_cumsums(mag, lead, trail)),
+        "bound_ms": 12 * m * t_len / HBM_BYTES_PER_S * 1e3}
     del a, b, lead, trail
 
     a = k.cm_streams(mag, ph, sat)
@@ -685,7 +780,7 @@ def kernels_flat_complex_main_shape(xq, samples, pipe, rows):
         err, False,
         time_ms(lambda: k.channelize_complex(x, taps)),
         time_ms(lambda: k.channelize_complex_plain(x, taps), reps=3, warmup=1),
-        None, n_bytes=n_bytes_of(x, y) + n_w, n_flop=n_flop,
+        None, n_bytes=n_bytes_of(x, y) + n_w, **dft_ops(m, p, t_len),
         shape=f"M={m} T={t_len}"))
 
 
@@ -721,8 +816,7 @@ def kernels_main_shape(xq, pipe):
             xq, taps, BIT_WIDTH, cfg.saturation_level), reps=3, warmup=1),
         None,
         n_bytes=xq.numel() * xq.element_size() + 3 * 4 * m * t_len
-        + 4 * (p * m + 2 * m * m),
-        n_flop=t_len * (4 * p * m + 8 * m * m), **res1)
+        + 4 * (p * m + 4 * m * m), **dft_ops(m, p, t_len), **res1)
 
     # K2
     a, b = k.noise_floor_cm(mag, t_len), k.noise_floor_cm_plain(mag, t_len)
@@ -856,8 +950,8 @@ def kernels_block_shape(xq, pipe, row):
             blk, taps, BIT_WIDTH, sat_level, history=hist), reps=3, warmup=1),
         None,
         n_bytes=(blk.numel() + hist.numel()) * blk.element_size()
-        + 4 * 4 * m * t_len + 4 * (p * m + 2 * m * m),
-        n_flop=t_len * (4 * p * m + 8 * m * m), mag_cm_equals_k1=True,
+        + 4 * 4 * m * t_len + 4 * (p * m + 4 * m * m),
+        **dft_ops(m, p, t_len), mag_cm_equals_k1=True,
         shape=f"M={m} T={t_len}", **res)
 
     # B7, entered with a mixed state
@@ -987,7 +1081,17 @@ def kernels_long_window(rows):
     cfg = PdwConfig.event(max_pulse_samples=w)
     mag, ph, sat = pdwmod._prep_streams_planes(xr, xi, cfg.saturation_level)
     lead, trail = (t.reshape(1) for t in pdwmod._thresholds(median(mag), cfg))
-    toa, te = slot_grids(k.latch_cumsums(mag[:, None], lead, trail), 1, 64, n)
+    packed = k.latch_cumsums(mag[:, None], lead, trail)
+    check(same(packed, k.latch_cumsums_plain(mag[:, None], lead, trail)),
+          "B7 predict shape: differs from plain")
+    # B7's row carries the predict dwell's shape too
+    b7 = next(r for r in rows if r["name"] == "latch_cumsums")
+    b7["predict_shape"] = {
+        "shape": f"M=1 T={n}",
+        "ms": time_ms(lambda: k.latch_cumsums(mag[:, None], lead, trail)),
+        "bound_ms": 12 * n / HBM_BYTES_PER_S * 1e3}
+    toa, te = slot_grids(packed, 1, 64, n)
+    del packed
     real = int(((toa < n) & (te < n)).sum())
     check(real >= 10, f"K4 long window: {real} pulses in the dwell")
     toa[0, -2:] = torch.tensor([1000, 2_000_000], dtype=torch.int32)

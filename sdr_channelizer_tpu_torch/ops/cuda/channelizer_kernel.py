@@ -6,12 +6,13 @@ The counterparts of ``pallas_channelize_streams[_packed]_cm2``,
 ``pallas_channelize_streams[_packed]`` and ``pallas_channelize`` of the JAX
 package: sign-extend and dequantize the samples, the polyphase branch FIR
 over the ``history`` frames of the previous block (zeros by default), the
-shift-folded DFT in full float32, then one of four outputs.  The cm2 form
-gives the channel-major streams of the PDW front end with the saturation as
-a cumulative count; the cm form gives it as a 0/1 mask and adds the
-time-major magnitude that the streamed noise floor and the time-major latch
-read; the flat form gives the time-major magnitude, phase in degrees and 0/1
-mask; the complex form gives the bands themselves.
+shift-folded DFT (on the card on the tensor cores, as three TF32 products of
+a hi + lo split that keep float32 accuracy), then one of four outputs.  The
+cm2 form gives the channel-major streams of the PDW front end with the
+saturation as a cumulative count; the cm form gives it as a 0/1 mask and
+adds the time-major magnitude that the streamed noise floor and the
+time-major latch read; the flat form gives the time-major magnitude, phase in
+degrees and 0/1 mask; the complex form gives the bands themselves.
 
 The capture comes as packed pairs (``*_packed*``: one int32 holding an int16
 (I, Q) pair, or one int16 holding an int8 pair: the recorder's bytes as they
@@ -42,11 +43,8 @@ launches_complex = 0  # complex: channelize_complex[_planes]
 _MODE_CM2, _MODE_CM, _MODE_FLAT, _MODE_COMPLEX = range(4)
 _PACKED = {torch.int32: 0, torch.int16: 1}   # dtype -> ingest code
 _PLANES = {torch.int16: 2, torch.float32: 3}
-_TILE_FRAMES = (64, 32, 16, 8, 4)
-_SMEM_TARGET = 100 * 1024   # two blocks a multiprocessor
-_SMEM_MAX = 227 * 1024      # what one block may use on sm_90
 
-_weights = {}  # (device, shift, taps bytes) -> (taps, wr, wi) on the device
+_weights = {}  # (device, shift, taps bytes) -> (taps, W fragments)
 
 
 def _check_args(xq: torch.Tensor, taps_rev) -> Tuple[int, int, int]:
@@ -337,33 +335,58 @@ def channelize_complex_planes_plain(xr, xi, taps_rev,
     return torch.complex(yr, yi)
 
 
-def _tile_frames(lib, m: int, p: int) -> int:
-    for cap in (_SMEM_TARGET, _SMEM_MAX):
-        for ft in _TILE_FRAMES:
-            if lib.sdr_channelize_smem(m, p, ft) <= cap:
-                return ft
-    raise ValueError(
-        f"channelizer kernel: M={m} bands with P={p} taps per band do not fit "
-        f"one block's shared memory")
+def tf32_rna(a: np.ndarray) -> np.ndarray:
+    """``a`` (float32) rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero: the rule of ``cvt.rna.tf32.f32``, on the bit pattern."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
 
 
-def _device_weights(taps_rev, shift: bool, dev, mp: int):
-    """The taps and the DFT planes (rows padded to ``mp`` columns) on the
-    device, kept from call to call: set-up, not part of a step."""
+def dft_fragments(m: int, shift: bool = True) -> np.ndarray:
+    """The DFT planes split for the kernel's three TF32 products, in the
+    order of its B fragments: ``(NT, KS, 32, 8)`` float32 with NT = KS = M
+    rounded up to 8, over 8.  Block ``[n, k]`` is the 8 x 8 tile of ``W``
+    for channels ``8n ..`` and branches ``8k ..``; lane ``l`` holds, for
+    channel ``8n + l // 4`` and branches ``c0 = 8k + l % 4`` and ``c0 + 4``:
+    ``wr`` hi at both, ``wr`` lo at both, ``wi`` hi at both, ``wi`` lo at
+    both, where ``hi = tf32_rna(w)`` and ``lo = tf32_rna(w - hi)``.  Pad rows
+    and columns are zero."""
     from sdr_channelizer_tpu_torch.dsp.channelizer import dft_matrix
 
+    w = dft_matrix(m, shifted=shift)
+    kp = (m + 7) // 8 * 8
+    planes = []
+    for part in (w.real, w.imag):
+        full = np.zeros((kp, kp), np.float32)   # [branch, channel]
+        full[:m, :m] = part
+        hi = tf32_rna(full)
+        planes += [hi, tf32_rna(full - hi)]
+    wr_hi, wr_lo, wi_hi, wi_lo = planes
+    lane = np.arange(32)
+    n = np.arange(kp // 8)[:, None, None] * 8 + (lane >> 2)[None, None, :]
+    k0 = np.arange(kp // 8)[None, :, None] * 8 + (lane & 3)[None, None, :]
+    k1 = k0 + 4
+    return np.ascontiguousarray(np.stack(
+        [wr_hi[k0, n], wr_hi[k1, n], wr_lo[k0, n], wr_lo[k1, n],
+         wi_hi[k0, n], wi_hi[k1, n], wi_lo[k0, n], wi_lo[k1, n]], axis=-1),
+        np.float32)
+
+
+def _device_weights(taps_rev, shift: bool, dev):
+    """The taps (columns padded with zeros to a multiple of 4) and the split
+    DFT planes in fragment order on the device, kept from call to call:
+    set-up, not part of a step."""
     taps = np.ascontiguousarray(taps_rev, np.float32)
     key = (dev, shift, taps.shape, taps.tobytes())
     hit = _weights.get(key)
     if hit is None:
-        m = taps.shape[1]
-        w = dft_matrix(m, shifted=shift)
-        wr = np.zeros((m, mp), np.float32)
-        wi = np.zeros((m, mp), np.float32)
-        wr[:, :m], wi[:, :m] = w.real, w.imag
+        p, m = taps.shape
+        padded = np.zeros((p, (m + 3) // 4 * 4), np.float32)
+        padded[:, :m] = taps
         if len(_weights) >= 16:
             _weights.clear()
-        hit = tuple(torch.as_tensor(a, device=dev) for a in (taps, wr, wi))
+        hit = tuple(torch.as_tensor(a, device=dev)
+                    for a in (padded, dft_fragments(m, shift)))
         _weights[key] = hit
     return hit
 
@@ -375,34 +398,50 @@ def _library():
     if not getattr(lib, "_sdr_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdr_channelize.argtypes = (
-            [ci, ci] + [vp] * 4 + [ci] + [vp] * 10 + [ci] * 5 + [cf, cf, vp])
+            [ci, ci] + [vp] * 4 + [ci] + [vp] * 9 + [ci] * 6 + [cf, cf, vp])
         lib.sdr_channelize.restype = ci
-        lib.sdr_channelize_smem.argtypes = [ci, ci, ci]
-        lib.sdr_channelize_smem.restype = ctypes.c_longlong
+        lib.sdr_channelize_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.sdr_channelize_plan.restype = ctypes.c_longlong
         lib._sdr_typed = True
     return lib
 
 
-def _tile(src: _Source, tile_frames: Optional[int]) -> int:
-    """The tile length in frames: the caller's, checked, or the longest that
-    leaves room for two blocks a multiprocessor."""
-    lib = _library()
-    ft = tile_frames or _tile_frames(lib, src.m, src.p)
-    if ft % 4 or lib.sdr_channelize_smem(src.m, src.p, ft) > _SMEM_MAX:
-        raise ValueError(f"tile_frames={ft} must be a multiple of 4 that fits "
-                         f"shared memory")
-    return ft
+def _tile(src: _Source, tile_frames: Optional[int], mode: int
+          ) -> Tuple[int, int, int]:
+    """``(frames a tile, n-tiles, k-steps of a chunk of W)``.  A tile has a
+    multiple of 16 rows: its frames, plus the look-ahead frame in the cm2
+    and cm modes.  The caller's tile length, checked, or the plan that
+    ``sdr_channelize_plan`` prefers: the longest tile that keeps all of W in
+    shared memory with room for two blocks a multiprocessor."""
+    import ctypes
+
+    ahead = 1 if mode in (_MODE_CM2, _MODE_CM) else 0
+    rows = 0 if tile_frames is None else tile_frames + ahead
+    plan = (ctypes.c_int * 3)()
+    if (tile_frames is None or rows > 0) and _library().sdr_channelize_plan(
+            src.m, src.p, rows, plan) > 0:
+        return plan[0] - ahead, plan[1], plan[2]
+    if tile_frames is not None:
+        raise ValueError(
+            f"tile_frames={tile_frames} must make tiles of a multiple of 16 "
+            f"rows (frames + {ahead} look-ahead) that fit shared memory")
+    raise ValueError(
+        f"channelizer kernel: M={src.m} bands with P={src.p} taps per band do "
+        f"not fit one block's shared memory")
 
 
-def _launch(mode: int, src: _Source, taps_rev, shift, ft: int, outs,
+def _launch(mode: int, src: _Source, taps_rev, shift, tile_frames, outs,
             sat_level: float = 0.0, tile_tot=None) -> None:
-    """Launch the kernel in ``mode`` on ``src`` with tiles of ``ft`` frames.
-    ``outs``: the six output tensors in the kernel's order (time-major
-    first, then channel-major), None where the mode writes none."""
+    """Launch the kernel in ``mode`` on ``src`` with the tiles
+    ``_tile(src, tile_frames, mode)`` gives.  ``outs``: the six output
+    tensors in the kernel's order (time-major first, then channel-major),
+    None where the mode writes none; ``tile_tot``: a callable of the tile
+    length giving the cm2 form's (M, tiles) int32 scratch."""
     p, m, t_len = src.p, src.m, src.t_len
     dev = src.device
-    mp = (m + 3) // 4 * 4
-    taps_d, wr_d, wi_d = _device_weights(taps_rev, shift, dev, mp)
+    ft, nct, kcs = _tile(src, tile_frames, mode)
+    taps_d, w_d = _device_weights(taps_rev, shift, dev)
+    tot = None if tile_tot is None else tile_tot(ft)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -410,9 +449,9 @@ def _launch(mode: int, src: _Source, taps_rev, shift, ft: int, outs,
     with torch.cuda.device(dev):
         code = _library().sdr_channelize(
             mode, src.ingest, ptr(src.x0), ptr(src.x1), ptr(src.h0),
-            ptr(src.h1), src.stride, taps_d.data_ptr(), wr_d.data_ptr(),
-            wi_d.data_ptr(), *(ptr(o) for o in outs), ptr(tile_tot), m, mp, p,
-            t_len, ft, src.scale, float(sat_level),
+            ptr(src.h1), src.stride, taps_d.data_ptr(), w_d.data_ptr(),
+            *(ptr(o) for o in outs), ptr(tot), m, p, t_len, ft, nct, kcs,
+            src.scale, float(sat_level),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(code, f"sdr_channelize (mode {mode})")
 
@@ -427,11 +466,10 @@ def _run_cm2(src, taps_rev, sat_level, shift, tile_frames):
     satcs = torch.empty_like(mag)
     if src.t_len == 0:
         return mag, dph, satcs
-    ft = _tile(src, tile_frames)
-    tile_tot = torch.empty((src.m, (src.t_len + ft - 1) // ft),
-                           dtype=torch.int32, device=dev)
-    _launch(_MODE_CM2, src, taps_rev, shift, ft,
-            (None, None, None, mag, dph, satcs), sat_level, tile_tot)
+    _launch(_MODE_CM2, src, taps_rev, shift, tile_frames,
+            (None, None, None, mag, dph, satcs), sat_level,
+            lambda ft: torch.empty((src.m, (src.t_len + ft - 1) // ft),
+                                   dtype=torch.int32, device=dev))
     launches += 1
     return mag, dph, satcs
 
@@ -445,7 +483,7 @@ def _run_cm(src, taps_rev, sat_level, shift, tile_frames):
     sat = torch.empty_like(mag)
     if src.t_len == 0:
         return mag_tm, mag, dph, sat
-    _launch(_MODE_CM, src, taps_rev, shift, _tile(src, tile_frames),
+    _launch(_MODE_CM, src, taps_rev, shift, tile_frames,
             (mag_tm, None, None, mag, dph, sat), sat_level)
     launches_cm += 1
     return mag_tm, mag, dph, sat
@@ -459,7 +497,7 @@ def _run_flat(src, taps_rev, sat_level, shift, tile_frames):
     sat = torch.empty_like(mag)
     if src.t_len == 0:
         return mag, ph, sat
-    _launch(_MODE_FLAT, src, taps_rev, shift, _tile(src, tile_frames),
+    _launch(_MODE_FLAT, src, taps_rev, shift, tile_frames,
             (mag, ph, sat, None, None, None), sat_level)
     launches_flat += 1
     return mag, ph, sat
@@ -471,7 +509,7 @@ def _run_complex(src, taps_rev, shift, tile_frames):
                     device=src.device)
     if src.t_len == 0:
         return y
-    _launch(_MODE_COMPLEX, src, taps_rev, shift, _tile(src, tile_frames),
+    _launch(_MODE_COMPLEX, src, taps_rev, shift, tile_frames,
             (y, None, None, None, None, None))
     launches_complex += 1
     return y
@@ -501,8 +539,11 @@ def channelize_streams_packed_cm2(
 
     The outputs have exactly M rows and ``t_len`` columns: no pad rows and
     no pad columns (the JAX kernel's have M rounded up to 8 and the time
-    axis rounded up to its block).  The DFT is computed with plain float32
-    fused multiply-adds, never TF32.
+    axis rounded up to its block).  On the card the DFT runs on the tensor
+    cores as three TF32 products of a hi + lo split of both factors, which
+    keeps float32 accuracy (rtol = atol = 1e-5 against the plain version).
+    ``tile_frames``: frames a tile, such that they and the look-ahead frame
+    make a multiple of 16 rows (default: chosen by shared memory).
     """
     src = _packed_source(xq, taps_rev, bit_width, history)
     if not xq.is_cuda:

@@ -13,9 +13,9 @@
 // trailing edge a 1 -> 0 step.  Out: (2R, T) float32, rows [0, R) the
 // inclusive count of leading edges, rows [R, 2R) that of trailing edges.
 //
-// What bounds it on an H100: bytes (4 read, 8 written per sample), but the
-// scan along time is a dependency chain, so in this first form latency is
-// what is paid.
+// What bounds it on an H100: bytes (4 read, 8 written per sample).  In the
+// channel-major form the scan along time is a dependency chain inside one
+// block, so latency is what is paid.
 //
 // Design: one block per row walks time in tiles of kThreads * kItems
 // samples and carries (state, lead count, trail count) from tile to tile in
@@ -28,21 +28,31 @@
 // stores are coalesced.  Counts are int32 and leave as float32, exact below
 // 2^24.  R blocks fill R of the 132 multiprocessors.
 //
-// The time-major form (`latch_tm_kernel`) reads mag (T, M).  A block per
-// channel walking one column would read 4 bytes at a stride of 4*M: every
-// load its own sector.  So a block owns kTmWarps neighbouring channels and
-// walks time in tiles of kTmTile frames: the tile's rows are read with the
-// channel index fastest (one 32-byte sector a row for eight channels) and
-// land transposed in shared memory; then one warp per channel runs the same
-// scan with shuffles only, a lane owning kTmItems consecutive samples, and
-// carries the same three values in registers.  A lane's stretch is padded
-// by one float so that the lanes of a warp hit different banks.  Outputs
-// leave channel-major through the same shared rows, 128 bytes a warp.
-// ceil(M / kTmWarps) blocks: fewer multiprocessors still than the
-// channel-major form, and the same latency-bound chain along time.  The
-// chain is what costs, so the next tile's magnitudes are read into
-// registers (kTmItems a thread) before the current tile is scanned, and
-// their latency hides behind the scan.
+// The time-major form (`latch_tm_kernel`) reads mag (T, M) and is a scan
+// across time that is parallel over segments of it, so that its grid grows
+// with T: a block owns one segment of tm_seg<G>() frames of G neighbouring
+// channels (G = 1 at M = 1, where a segment is 4096 frames; else 8 channels
+// and 512 frames, each row of the tile read as one 32-byte sector).  The
+// carry from segment to segment is a summary of the segment that does not
+// depend on the state it enters in: f, its first non-hold transfer (0 if
+// none); l, its last; L and R, the leading and trailing edges strictly after
+// the position of f, where the state is known inside the segment.  Two
+// summaries compose as f = A.f ? A.f : B.f, l = B.l ? B.l : A.l, the counts
+// add, and B's first transfer makes an edge when A.l is its opposite.
+// Applied to an entry state s, a prefix adds the edge at f given s, and
+// leaves the state l ? l > 0 : s.  The summaries of a segment's channels
+// are chained by a single-pass scan with decoupled look-back (Merrill and
+// Garland, NVIDIA 2016): a block takes its segment from an atomic ticket
+// (so every earlier segment is already running), publishes its own
+// aggregate, walks back over its predecessors' published words 32 at a time
+// until it meets an inclusive prefix, and publishes its own inclusive
+// prefix.  Flag and summary are one 64-bit word, stored with release and
+// read with acquire semantics.  Then the block walks its samples from the
+// known entry state and base: every sample is read once and both counts
+// written once, 12 bytes a sample, which bound it on an H100.  The tile
+// passes through shared memory both ways, so that global loads and stores
+// are coalesced (16 bytes a thread at M = 1); the wrapper zeroes the ticket
+// and status words for each call.
 
 #include "common.cuh"
 
@@ -161,137 +171,291 @@ latch_cm_kernel(const float* __restrict__ mag_cm,
   }
 }
 
-constexpr int kTmWarps = 8;                 // channels a block owns
-constexpr int kTmItems = 16;                // samples a lane owns in a tile
-constexpr int kTmTile = 32 * kTmItems;      // frames a tile
-constexpr int kTmChunk = kTmItems + 1;      // a lane's stretch, padded
-constexpr int kTmRow = 32 * kTmChunk + 1;   // a channel's row, padded
+// ---- the time-major scan
+
+constexpr int kTmThreads = 256;
+constexpr int kTmItems = 16;               // samples a thread owns
+constexpr int kTmChunk = kTmItems + 1;     // a thread's stretch, padded
+constexpr unsigned long long kAggregate = 1, kInclusive = 2;
+
+template <int G>
+__host__ __device__ constexpr int tm_seg() {
+  return kTmThreads / G * kTmItems;
+}
+
+// a row of the tile: padded so that the channels of a frame row land in
+// different banks
+template <int G>
+__host__ __device__ constexpr int tm_row() {
+  return kTmThreads / G * kTmChunk + (G > 1 ? 8 : 0);
+}
 
 __device__ __forceinline__ int tm_slot(int t) {
   return (t / kTmItems) * kTmChunk + (t % kTmItems);
 }
 
-__global__ void __launch_bounds__(kTmWarps * 32)
+struct Summary {
+  int f, l;  // first and last non-hold transfer, 0 if none
+  int L, R;  // leading and trailing edges strictly after f
+};
+
+__device__ __forceinline__ Summary combine(const Summary& a, const Summary& b) {
+  Summary c;
+  c.f = a.f ? a.f : b.f;
+  c.l = b.l ? b.l : a.l;
+  c.L = a.L + b.L + (a.l == -1 && b.f == 1 ? 1 : 0);
+  c.R = a.R + b.R + (a.l == 1 && b.f == -1 ? 1 : 0);
+  return c;
+}
+
+// bits 0-1 flag, 2-3 f + 1, 4-5 l + 1, 6-29 L, 30-53 R (counts < T < 2^24)
+__device__ __forceinline__ unsigned long long pack(const Summary& s,
+                                                   unsigned long long flag) {
+  return flag | (unsigned long long)(s.f + 1) << 2 |
+         (unsigned long long)(s.l + 1) << 4 | (unsigned long long)s.L << 6 |
+         (unsigned long long)s.R << 30;
+}
+
+__device__ __forceinline__ Summary unpack_summary(unsigned long long w) {
+  Summary s;
+  s.f = (int)((w >> 2) & 3) - 1;
+  s.l = (int)((w >> 4) & 3) - 1;
+  s.L = (int)((w >> 6) & 0xffffff);
+  s.R = (int)((w >> 30) & 0xffffff);
+  return s;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The state a prefix leaves and the edges it holds, entered in state s.
+__device__ __forceinline__ void apply(const Summary& p, int& s, int& lead,
+                                      int& trail) {
+  lead += p.L + (s == 0 && p.f == 1 ? 1 : 0);
+  trail += p.R + (s == 1 && p.f == -1 ? 1 : 0);
+  if (p.l != 0) s = p.l > 0 ? 1 : 0;
+}
+
+// The exclusive prefix of segment `seg` of one channel, by one warp:
+// publish the segment's aggregate, walk back over the predecessors' words
+// until an inclusive prefix, publish the inclusive prefix.
+__device__ Summary look_back(unsigned long long* st, int seg,
+                             const Summary& total, int lane) {
+  const Summary none = {0, 0, 0, 0};
+  if (seg == 0) {
+    if (lane == 0) store_release(st, pack(total, kInclusive));
+    return none;
+  }
+  if (lane == 0) store_release(st + seg, pack(total, kAggregate));
+  Summary run = none;  // the composition of the segments walked so far
+  for (int base = seg - 1;; base -= 32) {
+    const int j = base - lane;  // lane 0 the nearest predecessor
+    unsigned long long w;
+    do {
+      w = j >= 0 ? load_acquire(st + j) : pack(none, kInclusive);
+    } while (!__all_sync(sdr::kFullMask, (w & 3) != 0));
+    const unsigned incl = __ballot_sync(sdr::kFullMask, (w & 3) == kInclusive);
+    const int stop = incl ? __ffs(incl) - 1 : 32;
+    unsigned long long v = pack(lane <= stop ? unpack_summary(w) : none, 0);
+    // the window in time order: higher lanes are earlier segments
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned long long o = __shfl_down_sync(sdr::kFullMask, v, off);
+      if (lane + off < 32)
+        v = pack(combine(unpack_summary(o), unpack_summary(v)), 0);
+    }
+    run = combine(unpack_summary(__shfl_sync(sdr::kFullMask, v, 0)), run);
+    if (stop < 32) break;
+  }
+  if (lane == 0) store_release(st + seg, pack(combine(run, total), kInclusive));
+  return run;
+}
+
+template <int G>
+__global__ void __launch_bounds__(kTmThreads)
 latch_tm_kernel(const float* __restrict__ mag,  // (T, M)
                 const float* __restrict__ lead, const float* __restrict__ trail,
                 const float* __restrict__ entry, float* __restrict__ out,
-                int M, int T) {
-  // s_a holds the tile's magnitudes, then the leading-edge counts
-  __shared__ float s_a[kTmWarps * kTmRow];
-  __shared__ float s_trail[kTmWarps * kTmRow];
+                unsigned long long* __restrict__ status,  // ticket, (M, n_seg)
+                int M, int T, int n_seg, int vec) {
+  constexpr int kTpc = kTmThreads / G;  // threads a channel
+  constexpr int kWpc = kTpc / 32;       // warps a channel
+  constexpr int kSeg = tm_seg<G>();
+  constexpr int kRow = tm_row<G>();
+  // s_a holds the magnitudes, then the leading-edge counts
+  __shared__ float s_a[G * kRow];
+  __shared__ float s_b[G * kRow];
+  __shared__ unsigned long long s_warp[kTmThreads / 32];
+  __shared__ unsigned long long s_prefix[G];
+  __shared__ int s_ticket;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c0 = blockIdx.x * kTmWarps;
-  const int nc = min(kTmWarps, M - c0);
-  const bool live = warp < nc;  // the same for a whole warp
-  const int c = c0 + warp;
+  if (tid == 0) s_ticket = (int)atomicAdd(status, 1ull);
+  __syncthreads();
+  const int n_groups = (M + G - 1) / G;
+  const int seg = s_ticket / n_groups, grp = s_ticket - seg * n_groups;
+  const int c0 = grp * G, nc = min(G, M - c0);
+  const int t0 = seg * kSeg, n = min(kSeg, T - t0);
+  const int g = tid / kTpc, r = tid % kTpc;  // channel in the group, rank
+  const bool live = g < nc;                  // the same for a whole warp
+  const int c = c0 + (live ? g : 0);
+
+  // the tile: element i is frame i / nc, channel i % nc
+  const float* src = mag + (size_t)t0 * M + c0;
+  if (G == 1 && vec) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int i = tid; i < n / 4; i += kTmThreads) {
+      const float4 v = src4[i];
+      float* d = s_a + tm_slot(4 * i);  // four slots of one stretch
+      d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+    }
+    for (int t = n / 4 * 4 + tid; t < n; t += kTmThreads)
+      s_a[tm_slot(t)] = src[t];
+  } else {
+    for (int i = tid; i < n * nc; i += kTmThreads) {
+      const int t = i / nc, gg = i - t * nc;
+      s_a[gg * kRow + tm_slot(t)] = src[(size_t)t * M + gg];
+    }
+  }
+  __syncthreads();
+
+  // this thread's transfers and their summary
   const float th_lead = live ? lead[c] : 0.0f;
   const float th_trail = live ? trail[c] : 0.0f;
-  float* out_lead = out + (size_t)(live ? c : 0) * T;
-  float* out_trail = out + (size_t)(M + (live ? c : 0)) * T;
-  float* mine_a = s_a + warp * kTmRow;
-  float* mine_t = s_trail + warp * kTmRow;
-
-  int state_in = (live && entry != nullptr && entry[c] > 0.5f) ? 1 : 0;
-  int lead_base = 0, trail_base = 0;
-
-  // element j of a thread is element tid + j * blockDim of the tile, rows of
-  // nc channels laid end to end: frame i / nc, channel i % nc
-  float pre[kTmItems];
-  auto fetch = [&](int t0) {
-    const int n_el = min(kTmTile, T - t0) * nc;
-    const float* src = mag + (size_t)t0 * M + c0;
+  float* mine_a = s_a + g * kRow + r * kTmChunk;
+  float* mine_b = s_b + g * kRow + r * kTmChunk;
+  int tr[kTmItems];
+  Summary own = {0, 0, 0, 0};
 #pragma unroll
-    for (int j = 0; j < kTmItems; ++j) {
-      const int i = tid + j * kTmWarps * 32;
-      const int t = i / nc;
-      pre[j] = i < n_el ? src[(size_t)t * M + (i - t * nc)] : 0.0f;
+  for (int i = 0; i < kTmItems; ++i) {
+    int t = 0;
+    if (live && r * kTmItems + i < n) {
+      const float m = mine_a[i];
+      t = (m >= th_lead ? 1 : 0) - (m <= th_trail ? 1 : 0);
     }
-  };
-  fetch(0);
-
-  for (int t0 = 0; t0 < T; t0 += kTmTile) {
-    const int n = min(kTmTile, T - t0);
-#pragma unroll
-    for (int j = 0; j < kTmItems; ++j) {
-      const int i = tid + j * kTmWarps * 32;
-      const int t = i / nc, g = i - t * nc;
-      if (i < n * nc) s_a[g * kTmRow + tm_slot(t)] = pre[j];
+    tr[i] = t;
+    if (t != 0) {
+      if (own.f == 0) {
+        own.f = t;
+      } else {
+        own.L += (own.l == -1 && t == 1) ? 1 : 0;
+        own.R += (own.l == 1 && t == -1) ? 1 : 0;
+      }
+      own.l = t;
     }
-    __syncthreads();
-    if (t0 + kTmTile < T) fetch(t0 + kTmTile);
-
-    if (live) {
-      int tr[kTmItems];
-      int agg = 0;
-#pragma unroll
-      for (int i = 0; i < kTmItems; ++i) {
-        int t = 0;
-        if (lane * kTmItems + i < n) {
-          const float m = mine_a[lane * kTmChunk + i];
-          t = (m >= th_lead ? 1 : 0) - (m <= th_trail ? 1 : 0);
-        }
-        tr[i] = t;
-        agg = compose(agg, t);
-      }
-      int incl = agg;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(sdr::kFullMask, incl, off);
-        if (lane >= off) incl = compose(o, incl);
-      }
-      int excl = __shfl_up_sync(sdr::kFullMask, incl, 1);
-      if (lane == 0) excl = 0;
-      const int tile_tr = __shfl_sync(sdr::kFullMask, incl, 31);
-      int state = excl != 0 ? (excl > 0 ? 1 : 0) : state_in;
-
-      int cnt = 0;  // leading edges in the low half, trailing in the high
-      int edge[kTmItems];
-#pragma unroll
-      for (int i = 0; i < kTmItems; ++i) {
-        const int prev = state;
-        if (tr[i] != 0) state = tr[i] > 0 ? 1 : 0;
-        const int le = state & (1 - prev), te = prev & (1 - state);
-        cnt += le + (te << 16);
-        edge[i] = cnt;
-      }
-      const int cincl = sdr::warp_inclusive_sum(cnt, lane);
-      const int cexcl = cincl - cnt;
-      const int ctotal = __shfl_sync(sdr::kFullMask, cincl, 31);
-#pragma unroll
-      for (int i = 0; i < kTmItems; ++i) {
-        const int cc = cexcl + edge[i];
-        mine_a[lane * kTmChunk + i] = (float)(lead_base + (cc & 0xffff));
-        mine_t[lane * kTmChunk + i] = (float)(trail_base + (cc >> 16));
-      }
-      __syncwarp();
-      for (int i = lane; i < n; i += 32) {
-        out_lead[t0 + i] = mine_a[tm_slot(i)];
-        out_trail[t0 + i] = mine_t[tm_slot(i)];
-      }
-      if (tile_tr != 0) state_in = tile_tr > 0 ? 1 : 0;
-      lead_base += ctotal & 0xffff;
-      trail_base += ctotal >> 16;
-    }
-    __syncthreads();  // the rows are refilled by the next tile
   }
+
+  // scan of the summaries over the channel's threads
+  unsigned long long incl = pack(own, 0);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned long long o = __shfl_up_sync(sdr::kFullMask, incl, off);
+    if (lane >= off)
+      incl = pack(combine(unpack_summary(o), unpack_summary(incl)), 0);
+  }
+  unsigned long long excl_w = __shfl_up_sync(sdr::kFullMask, incl, 1);
+  if (lane == 0) excl_w = pack(Summary{0, 0, 0, 0}, 0);
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  const int w0 = g * kWpc;  // the channel's first warp
+  Summary before = {0, 0, 0, 0};
+  for (int w = w0; w < warp; ++w)
+    before = combine(before, unpack_summary(s_warp[w]));
+  const Summary excl = combine(before, unpack_summary(excl_w));
+
+  // the prefix of the segments before this one, by the channel's first warp
+  if (warp == w0 && live) {
+    Summary total = before;  // before is empty in the first warp
+    for (int w = w0; w < w0 + kWpc; ++w)
+      total = combine(total, unpack_summary(s_warp[w]));
+    const Summary pre =
+        look_back(status + 1 + (size_t)c * n_seg, seg, total, lane);
+    if (lane == 0) s_prefix[g] = pack(pre, 0);
+  }
+  __syncthreads();
+
+  if (live) {
+    int state = (entry != nullptr && entry[c] > 0.5f) ? 1 : 0;
+    int n_lead = 0, n_trail = 0;
+    apply(unpack_summary(s_prefix[g]), state, n_lead, n_trail);
+    apply(excl, state, n_lead, n_trail);
+#pragma unroll
+    for (int i = 0; i < kTmItems; ++i) {
+      const int prev = state;
+      if (tr[i] != 0) state = tr[i] > 0 ? 1 : 0;
+      n_lead += state & (1 - prev);
+      n_trail += prev & (1 - state);
+      mine_a[i] = (float)n_lead;
+      mine_b[i] = (float)n_trail;
+    }
+  }
+  __syncthreads();
+  if (live) {
+    float* out_lead = out + (size_t)c * T + t0;
+    float* out_trail = out + (size_t)(M + c) * T + t0;
+    const float* row_a = s_a + g * kRow;
+    const float* row_b = s_b + g * kRow;
+    for (int t = r; t < n; t += kTpc) {
+      out_lead[t] = row_a[tm_slot(t)];
+      out_trail[t] = row_b[tm_slot(t)];
+    }
+  }
+}
+
+// channels a block of the time-major scan owns
+inline int tm_group(int M) { return M == 1 ? 1 : 8; }
+
+inline int tm_segments(int M, int T) {
+  const int seg = M == 1 ? tm_seg<1>() : tm_seg<8>();
+  return (T + seg - 1) / seg;
 }
 
 }  // namespace
 
+// 64-bit words of scratch the time-major scan needs, zeroed, for (T, M):
+// the ticket, then one status word per channel and segment.
+extern "C" long long sdr_latch_tm_scratch_words(int M, int T) {
+  if (M <= 0 || T <= 0) return 1;
+  return 1 + (long long)M * tm_segments(M, T);
+}
+
 // mag: (T, M) float32 contiguous, time-major; lead, trail: (M,) float32;
 // entry: (M,) float32 (> 0.5 = the latch enters active) or null; out:
-// (2M, T) float32, rows [0, M) leading-edge counts, [M, 2M) trailing.
+// (2M, T) float32, rows [0, M) leading-edge counts, [M, 2M) trailing;
+// scratch: sdr_latch_tm_scratch_words(M, T) 64-bit words, all zero.
 extern "C" int sdr_latch_cumsums_tm(const void* mag, const void* lead,
                                     const void* trail, const void* entry,
-                                    void* out, int M, int T, void* stream) {
+                                    void* out, void* scratch, int M, int T,
+                                    void* stream) {
   if (M <= 0 || T <= 0) return 0;
-  const int blocks = (M + kTmWarps - 1) / kTmWarps;
-  latch_tm_kernel<<<blocks, kTmWarps * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mag), static_cast<const float*>(lead),
-      static_cast<const float*>(trail), static_cast<const float*>(entry),
-      static_cast<float*>(out), M, T);
+  const int n_seg = tm_segments(M, T);
+  const int G = tm_group(M);
+  const int blocks = n_seg * ((M + G - 1) / G);
+  const int vec = (reinterpret_cast<uintptr_t>(mag) & 15) == 0 ? 1 : 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mag);
+  const float* l = static_cast<const float*>(lead);
+  const float* t = static_cast<const float*>(trail);
+  const float* e = static_cast<const float*>(entry);
+  float* o = static_cast<float*>(out);
+  unsigned long long* st = static_cast<unsigned long long*>(scratch);
+  if (G == 1)
+    latch_tm_kernel<1><<<blocks, kTmThreads, 0, s>>>(m, l, t, e, o, st, M, T,
+                                                     n_seg, vec);
+  else
+    latch_tm_kernel<8><<<blocks, kTmThreads, 0, s>>>(m, l, t, e, o, st, M, T,
+                                                     n_seg, vec);
   return (int)cudaGetLastError();
 }
 
