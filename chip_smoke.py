@@ -22,12 +22,17 @@ ms dwells at 56 Msps of a scanning beam, written by the recorder, through
 ``predict`` in-process, against its plain run, and through the CLI) and the
 closed-loop tracker (20 dwells synthesised on the card); and runs the CLI,
 the capture commands included.  One JSON line per phase; any failure exits
-non-zero.  The small shapes include the time-major latch's scan across
-segments (a pulse over many segments, holds over whole segments, a latch
-entered active with no transfer, one channel of 2^24 - 1 samples) and the
-channelizer body with T on tile boundaries, where the look-ahead frame is
-taken.  ``--profile`` adds phases that print the device time of a step by
-kernel name and where a streamed block's time goes.  There is no CPU path:
+non-zero.  The small shapes include the latch's scans across segments,
+time-major (a pulse over many segments, holds over whole segments, a latch
+entered active with no transfer, one channel of 2^24 - 1 samples) and
+channel-major (T one frame either side of a segment, pad rows, rows that
+start off a 16-byte boundary), the noise floor's select (candidates that
+overflow its buffer, a sample that misses the median, NaNs, subnormals) and
+the channelizer body with T on tile boundaries, where the look-ahead frame
+is taken.  Every route, wideband extraction and ``predict`` take their
+noise floor with the select kernel, and its launches are counted on each.
+``--profile`` adds phases that print the device time of a step by kernel
+name and where a streamed block's time goes.  There is no CPU path:
 without a CUDA device the script exits at once with code 2 and prints no
 result.
 
@@ -191,6 +196,35 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """One call's device time: the call captured as a CUDA graph, replayed
+    ``reps`` times between two CUDA events, without the host's launch
+    overhead that ``time_ms`` includes."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / reps
 
 
 def kernel_row(name, source, replaces, err, exact, ms, plain_ms, library_ms,
@@ -512,6 +546,119 @@ def kernels_small():
     return cases
 
 
+def _nf_fits(mag, t_len: int) -> int:
+    """Rows of ``mag`` whose keys under the median's top 12 bits fit K2's
+    candidate buffer: the rows whose last digits are not taken from the row
+    itself."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.ops.cuda import nf_kernel
+    from sdr_channelizer_tpu_torch.ops.medians import sortable_u32
+
+    lo = torch.sort(mag[:, :t_len], dim=1).values[:, (t_len - 1) // 2]
+    top = sortable_u32(lo) >> 20
+    n_in = (sortable_u32(mag[:, :t_len]) >> 20 == top[:, None]).sum(dim=1)
+    cap = nf_kernel._library().sdr_noise_floor_cap(t_len)
+    return int((n_in <= cap).sum())
+
+
+def kernels_small_latch_nf():
+    """K3's segment scan and K2's select at the shapes where they can go
+    wrong: K3 with T one frame short of, on and past a segment (4096
+    frames) and three segments and one, one row, pad rows (m_real < R), rows
+    whose start is not 16 bytes aligned; K2 with odd and even lengths,
+    candidates that overflow the buffer (quantized, constant-heavy rows), a
+    sample that misses the median, hi in the 12-bit bin after lo's, NaNs,
+    subnormals, rows far apart and a 1-D row."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(6)
+    seg = 4096
+    cases = []
+    for r, m_real, t_len in ((16, 13, seg - 1), (16, 13, seg),
+                             (16, 13, seg + 1), (16, 13, 3 * seg + 1),
+                             (1, 1, 3 * seg + 1), (64, 61, seg + 3),
+                             (3, 2, 5)):
+        t = torch.arange(t_len, device=dev)
+        mag = torch.rand((r, t_len), device=dev, generator=gen) * 0.2
+        for c in range(r):   # pulses over segment boundaries
+            on = ((t + 977 * c) % (1500 + 37 * c)) < 300 + 11 * c
+            mag[c] = torch.where(on, mag[c] + 0.8, mag[c])
+        mag[:, -7:] = 0.9            # open at T - 1
+        mag[:, t_len // 2] = 0.6     # exactly on lead
+        mag[:, t_len // 3] = 0.3     # exactly on trail
+        if r > 2:
+            mag[1] = 0.45            # holds only: no transfer at all
+        lead = torch.full((m_real,), 0.6, device=dev)
+        trail = torch.full((m_real,), 0.3, device=dev)
+        entry = (torch.arange(m_real, device=dev) % 2).float()
+        for th_t, ent in ((trail, None), (trail, entry), (lead, entry)):
+            a = k.latch_cumsums_cm(mag, lead, th_t, m_real, ent)
+            b = k.latch_cumsums_cm_plain(mag, lead, th_t, m_real, ent)
+            check(same(a, b), f"K3 R={r} m_real={m_real} T={t_len}: off by "
+                              f"{max_abs(a, b):.3g}")
+        a = k.latch_cumsums_cm(mag, lead, trail, m_real, entry)
+        check(bool((a[:m_real, -1] + entry - a[r:r + m_real, -1] == 1).all()),
+              f"K3 R={r} T={t_len}: a pulse open at T - 1 was closed")
+        cases.append({"case": f"K3 R={r} m_real={m_real} T={t_len}",
+                      "exact": True, "row_16_byte_aligned": t_len % 4 == 0})
+    # rows that start 4 bytes past a 16-byte boundary
+    base = torch.rand((8 * 5003 + 1,), device=dev, generator=gen)
+    mag = base[1:].view(8, 5003)
+    lead = torch.full((8,), 0.9, device=dev)
+    trail = torch.full((8,), 0.2, device=dev)
+    check(same(k.latch_cumsums_cm(mag, lead, trail),
+               k.latch_cumsums_cm_plain(mag, lead, trail)),
+          "K3 unaligned rows: differs from plain")
+    cases.append({"case": "K3 R=8 T=5003, base 4 bytes past 16",
+                  "exact": True})
+
+    def floor(x, t_len, what):
+        a, b = k.noise_floor_cm(x, t_len), k.noise_floor_cm_plain(x, t_len)
+        check(same(a, b), f"K2 {what} t_len={t_len}: off by "
+                          f"{max_abs(a, b):.3g}")
+
+    ray = torch.hypot(torch.randn((16, 40001), device=dev, generator=gen),
+                      torch.randn((16, 40001), device=dev, generator=gen))
+    quant = torch.round(ray)                    # the median's bin holds most
+    heavy = torch.where(ray < 2.0, torch.full_like(ray, 1.25), ray)
+    nan = ray.clone()
+    nan[:, ::3] = float("nan")
+    sub = ray * 1e-39                           # subnormals
+    for x, what in ((ray, "noise"), (quant, "quantized"),
+                    (heavy, "constant-heavy"), (nan, "NaN"),
+                    (sub, "subnormal")):
+        for t_len in (40001, 40000, 16385, 2, 1):
+            floor(x, t_len, what)
+    for x, what in ((quant, "quantized"), (heavy, "constant-heavy")):
+        check(_nf_fits(x, 40000) == 0,
+              f"K2 {what}: the candidates did not overflow the buffer")
+    check(_nf_fits(ray, 40000) == 16, "K2 noise: candidates overflowed")
+    # a sample that misses the median (the sampled runs hold tiny values):
+    # the row is read again; lo and hi in neighbouring 12-bit bins of the
+    # window, each holding few keys: hi is the least key of its bin
+    i = torch.arange(8192, device=dev)
+    sampled = (i // 128) * (40001 - 128) // 63 + i % 128
+    missed = ray.clone()
+    missed[:, sampled] = 1e-3
+    split = torch.cat([torch.linspace(0.01, 0.99, 20000, device=dev),
+                       torch.linspace(1.01, 100.0, 20001, device=dev)])
+    for t_len in (40001, 40000):
+        floor(missed, t_len, "sample missed")
+        floor(split.expand(4, -1).contiguous(), t_len, "hi split off")
+    floor(ray[:, 1:40001], 40000, "rows 4 bytes past 16")
+    floor(ray[::5], 40001, "rows five rows apart")
+    floor(ray.reshape(-1)[None], ray.numel(), "one 1-D row")
+    cases.append({"case": "K2 R=16 T=40001: noise, quantized, "
+                          "constant-heavy, NaN, subnormal; odd and even",
+                  "exact": True, "overflowing": ["quantized",
+                                                 "constant-heavy"]})
+    return cases
+
+
 def kernels_small_flip_flat_complex():
     """The flip kernel, the flat form and the complex form against their
     plain versions at small and awkward shapes; the time-major latch at
@@ -827,7 +974,9 @@ def kernels_main_shape(xq, pipe):
         time_ms(lambda: k.noise_floor_cm(mag, t_len)),
         time_ms(lambda: k.noise_floor_cm_plain(mag, t_len), reps=3, warmup=1),
         time_ms(lambda: torch.sort(mag[:, :t_len], dim=1), reps=3, warmup=1),
-        n_bytes=4 * m * t_len + 4 * m, n_flop=0)
+        n_bytes=4 * m * t_len + 4 * m, n_flop=0,
+        device_ms=device_ms(lambda: k.noise_floor_cm(mag, t_len)),
+        buffer_fits=_nf_fits(mag, t_len))
 
     # K3
     lead = nf * 10.0 ** (cfg.snr_threshold_db / 10.0)
@@ -841,7 +990,8 @@ def kernels_main_shape(xq, pipe):
         time_ms(lambda: k.latch_cumsums_cm(mag, lead, lead, m)),
         time_ms(lambda: k.latch_cumsums_cm_plain(mag, lead, lead, m),
                 reps=3, warmup=1),
-        None, n_bytes=(4 + 8) * m * t_len + 12 * m, n_flop=0)
+        None, n_bytes=(4 + 8) * m * t_len + 12 * m, n_flop=0,
+        device_ms=device_ms(lambda: k.latch_cumsums_cm(mag, lead, lead, m)))
 
     # K4: the two tier calls of a step, on the slots this capture gives
     toa, te = slot_grids(packed, m, cfg.max_pulses, t_len)
@@ -961,8 +1111,11 @@ def kernels_block_shape(xq, pipe, row):
     a = k.latch_cumsums(mag_tm, lead, lead, entry)
     b = k.latch_cumsums_plain(mag_tm, lead, lead, entry)
     check(same(a, b), f"B7 block shape: off by {max_abs(a, b):.3g}")
-    check(same(a, k.latch_cumsums_cm(mag, lead, lead, m, entry)),
-          "B7 block shape: differs from K3 on the flip")
+    c = k.latch_cumsums_cm(mag, lead, lead, m, entry)
+    check(same(c, k.latch_cumsums_cm_plain(mag, lead, lead, m, entry)),
+          "K3 block shape, entered active: differs from plain")
+    check(same(a, c), "B7 block shape: differs from K3 on the flip")
+    del c
     del b
     row("latch_cumsums", "latch.cu", "latch_kernel.py:283", 0.0, True,
         time_ms(lambda: k.latch_cumsums(mag_tm, lead, lead, entry)),
@@ -1064,7 +1217,8 @@ def kernels_long_window(rows):
     at its peak (one channel x 4,480,000 samples, synthesised on the card):
     the dwell's pulses, which keep the shared-memory path, plus slots of
     60,000 and 70,000 samples, longer than a warp's stretch of shared
-    memory, which take the selection from device memory."""
+    memory, which take the selection from device memory.  K2 takes the
+    dwell's floor, against its plain version; returns its reading there."""
     import torch
 
     from sdr_channelizer_tpu_torch.capture import DeviceDwellEmitter
@@ -1080,7 +1234,22 @@ def kernels_long_window(rows):
                                      device=DEVICE).receive(n, start_time=0.06)
     cfg = PdwConfig.event(max_pulse_samples=w)
     mag, ph, sat = pdwmod._prep_streams_planes(xr, xi, cfg.saturation_level)
-    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(median(mag), cfg))
+    # K2 at the dwell's shape: the floor predict takes
+    row1 = mag[None]
+    nf = k.noise_floor_cm(row1, n)
+    nf_plain = k.noise_floor_cm_plain(row1, n)
+    check(same(nf, nf_plain) and same(nf.reshape(()), median(mag)),
+          f"K2 predict shape: off by {max_abs(nf, nf_plain):.3g}")
+    dwell = {"shape": f"M=1 T={n}",
+             "ms": time_ms(lambda: k.noise_floor_cm(row1, n)),
+             "device_ms": device_ms(lambda: k.noise_floor_cm(row1, n)),
+             "plain_ms": time_ms(lambda: k.noise_floor_cm_plain(row1, n),
+                                 reps=3, warmup=1),
+             "library_ms": time_ms(lambda: torch.sort(mag), reps=3,
+                                   warmup=1),
+             "bound_ms": 4 * (n + 1) / HBM_BYTES_PER_S * 1e3,
+             "buffer_fits": _nf_fits(row1, n)}
+    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(nf[0], cfg))
     packed = k.latch_cumsums(mag[:, None], lead, trail)
     check(same(packed, k.latch_cumsums_plain(mag[:, None], lead, trail)),
           "B7 predict shape: differs from plain")
@@ -1140,6 +1309,7 @@ def kernels_long_window(rows):
         ms_without_the_long_slots=time_ms(lambda: k.pulse_stats_dense(
             mag_cm, dph_cm, sat_cm, toa_f[:-2].contiguous(),
             te_f[:-2].contiguous(), chan[:-2].contiguous(), w, n))))
+    return dwell
 
 
 def pdws_agree(a: dict, b: dict, where: str) -> None:
@@ -1288,10 +1458,12 @@ STREAM_COUNTS = {
     "pulse_stats_sat": "pulse_stats_kernel.launches",
     "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
 WIDEBAND_COUNTS = {
+    "noise_floor_wideband": "nf_kernel.launches",
     "latch_cumsums_wideband": "latch_kernel.launches_tm",
     "cm_streams_wideband": "transpose_kernel.launches",
     "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
 ROUTE_COUNTS = {
+    "noise_floor_cm": "nf_kernel.launches",
     "channelize_streams_packed": "channelizer_kernel.launches_flat",
     "cm_streams": "transpose_kernel.launches",
     "channelize_complex": "channelizer_kernel.launches_complex",
@@ -1472,19 +1644,19 @@ def wideband_capture(n: int, pri_sec: float, start_index: int, seed: int):
                                       np.complex64)
 
 
-def phase_wideband(rows):
+def phase_wideband(rows, dwell: dict):
     """The wideband path at a real size: 16,000,000 complex samples through
     ``WidebandPdwPipeline.extract`` on the card, against the same call with
-    the plain versions and against the generator's pulses; B7 and B8 at one
-    channel against their plain versions, and timed; then 2^25 samples
-    through the blocked route against the oracle extractor."""
+    the plain versions and against the generator's pulses; K2 (the floor),
+    B7 and B8 at one channel against their plain versions, and timed (K2's
+    row carries ``dwell``, its reading at one ``predict`` dwell); then 2^25
+    samples through the blocked route against the oracle extractor."""
     import torch
 
     from sdr_channelizer_tpu_torch.config import PdwConfig
     from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
     from sdr_channelizer_tpu_torch.models import WidebandPdwPipeline
     from sdr_channelizer_tpu_torch.ops import cuda as k
-    from sdr_channelizer_tpu_torch.ops.medians import median
     from sdr_channelizer_tpu_torch.signal.synth import pulse_starts
 
     cfg = PdwConfig.wideband(max_pulses=512, max_pulse_samples=4096)
@@ -1527,14 +1699,30 @@ def phase_wideband(rows):
     x = torch.as_tensor(iq, device=DEVICE)
     step = time_ms(lambda: pipe.forward(x), reps=3, warmup=1)
     mag, ph, sat = pdwmod._prep_streams(x, cfg.saturation_level)
-    nf = median(mag)
+    row1 = mag[None]   # the capture's magnitude as K2's one row
+    nf = k.noise_floor_cm(row1, n)
+    nf_plain = k.noise_floor_cm_plain(row1, n)
+    check(same(nf, nf_plain), f"K2 wideband shape: off by "
+                              f"{max_abs(nf, nf_plain):.3g}")
+    check(same(nf.reshape(()), pipe.forward(x)[0]),
+          "wideband: the step's floor is not K2's")
+    nf = nf.reshape(())
     lead, trail = (t.reshape(1) for t in pdwmod._thresholds(nf, cfg))
     mag2, ph2, sat2 = mag[:, None], ph[:, None], sat[:, None]
     parts = {
         "prep_streams_ms": time_ms(lambda: pdwmod._prep_streams(
             x, cfg.saturation_level), reps=3, warmup=1),
-        "median_ms": time_ms(lambda: median(mag), reps=3, warmup=1),
+        "noise_floor_ms": time_ms(lambda: k.noise_floor_cm(row1, n), reps=3,
+                                  warmup=1),
     }
+    rows.append(kernel_row(
+        "noise_floor_wideband", "noise_floor.cu", "nf_kernel.py:112", 0.0,
+        True, time_ms(lambda: k.noise_floor_cm(row1, n)),
+        time_ms(lambda: k.noise_floor_cm_plain(row1, n), reps=3, warmup=1),
+        time_ms(lambda: torch.sort(mag), reps=3, warmup=1),
+        n_bytes=4 * n + 4, n_flop=0, shape=f"M=1 T={n}",
+        device_ms=device_ms(lambda: k.noise_floor_cm(row1, n)),
+        buffer_fits=_nf_fits(row1, n), predict_shape=dwell))
 
     # B7 at one channel
     a = k.latch_cumsums(mag2, lead, trail)
@@ -1609,8 +1797,11 @@ def phase_wideband(rows):
     peak = torch.cuda.max_memory_allocated()
     n_blocks = n // block
     check(blocked_launches["latch_cumsums_wideband"] == n_blocks
-          and blocked_launches["cm_streams_wideband"] == n_blocks,
+          and blocked_launches["cm_streams_wideband"] == n_blocks
+          and blocked_launches["noise_floor_wideband"] == 1,
           f"wideband, blocked: launch counts {blocked_launches}")
+    check(same(nf.reshape(1), k.noise_floor_cm_plain(x.abs()[None], n)),
+          "K2 at 2^25 samples: differs from plain")
     step = time_ms(lambda: pipe.forward(x), reps=3, warmup=1)
     ref = pdwmod.extract_pdws(x, cfg, noise_floor=nf, stats="xla")
     got_b, ref_b = pdwmod.batch_to_host(batch), pdwmod.batch_to_host(ref)
@@ -1639,7 +1830,8 @@ def phase_wideband(rows):
     torch.cuda.empty_cache()
     emit("wideband", max_pulses=cfg.max_pulses,
          max_pulse_samples=cfg.max_pulse_samples, fs=WIDE_FS,
-         checked=["latch_cumsums_wideband", "cm_streams_wideband"], **out)
+         checked=["noise_floor_wideband", "latch_cumsums_wideband",
+                  "cm_streams_wideband"], **out)
     # the statistics kernel's row counts the streamed path's launches
     del launches["pulse_stats_dense"]
     return launches
@@ -1670,12 +1862,16 @@ def phase_routes(pipe, caps):
     launches = {}
     for name, samples in caps.items():
         xq = torch.as_tensor(pack(samples), device=pipe.device)
-        pdws, res = {}, {}
+        pdws, res, floors = {}, {}, {}
         for route in ("cm2", "flat", "cm"):
             reset()
-            _, _, batch = pipe.forward_packed(xq, BIT_WIDTH, route=route)
+            floors[route], _, batch = pipe.forward_packed(xq, BIT_WIDTH,
+                                                          route=route)
             pdws[route] = pipe._finalize(batch, fs, 0.0, 0.0)
             seen = counts()
+            # every route takes its floor with K2, once
+            check(seen["noise_floor_cm"] == 1,
+                  f"route {route}, {name}: launch counts {seen}")
             if route == "flat":
                 check(seen["channelize_streams_packed"] == 1
                       and seen["cm_streams"] == 1
@@ -1688,10 +1884,14 @@ def phase_routes(pipe, caps):
                 check(seen["channelize_cm"] == 1 and seen["cm_streams"] == 0
                       and seen["latch_cumsums"] == 1,
                       f"route cm, {name}: launch counts {seen}")
-            res[route] = {
+            res[route] = {"noise_floor_launches": seen["noise_floor_cm"]}
+            # one body gives every route the same magnitude: the same floor
+            check(same(floors[route], floors["cm2"]),
+                  f"route {route}, {name}: the floor differs from cm2's")
+            res[route].update({
                 "pulses": len(pdws[route]["toa"]),
                 "step_ms": time_ms(lambda: pipe.forward_packed(
-                    xq, BIT_WIDTH, route=route), reps=5)}
+                    xq, BIT_WIDTH, route=route), reps=5)})
         for route in ("flat", "cm"):
             if name == "sparse":
                 pdws_agree(pdws[route], pdws["cm2"],
@@ -1741,12 +1941,19 @@ def phase_routes(pipe, caps):
                       <= band, f"{where}: {len(pdws[route]['toa'])} pulses "
                                f"vs {len(plain['toa'])} from the plain "
                                f"versions")
-        # the flat and cm routes' noise floor: a sort along the strided axis
+        # the flat and cm routes' noise floor: K2 on the flip, where a sort
+        # along the strided axis was
         mag = channelizer_kernel.channelize_streams_packed(
             xq, pipe.channelizer.taps_rev, BIT_WIDTH)[0]
+        mag_cm = mag.T.contiguous()
+        check(same(k.noise_floor_cm(mag_cm, FRAMES_MAIN),
+                   median(mag, dim=0)),
+              f"K2 route shape, {name}: differs from median(mag, dim=0)")
+        res["noise_floor_ms"] = time_ms(
+            lambda: k.noise_floor_cm(mag_cm, FRAMES_MAIN))
         res["median_dim0_ms"] = time_ms(lambda: median(mag, dim=0), reps=3,
                                         warmup=1)
-        del mag, xq
+        del mag, mag_cm, xq
         out[name] = res
 
     # a float32 payload takes the planes ingest of the cm2 form and gives
@@ -1858,7 +2065,8 @@ def phase_predict():
                         dwell_sec=DWELL_SEC,
                         duration_sec=PREDICT_FILES * DWELL_SEC)
     cfg = PdwConfig.event(max_pulses=512, max_pulse_samples=PREDICT_WINDOW)
-    counts = {"latch_cumsums": "latch_kernel.launches_tm",
+    counts = {"noise_floor": "nf_kernel.launches",
+              "latch_cumsums": "latch_kernel.launches_tm",
               "cm_streams": "transpose_kernel.launches",
               "pulse_stats_dense": "pulse_stats_kernel.launches_dense",
               "pulse_stats_long_window":
@@ -2287,7 +2495,8 @@ def main() -> int:
             pdw_cfg=PdwConfig.channelized(max_pulses=512,
                                           max_pulse_samples=1024))
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-        small = kernels_small() + kernels_small_flip_flat_complex()
+        small = (kernels_small() + kernels_small_latch_nf()
+                 + kernels_small_flip_flat_complex())
         n = M_MAIN * FRAMES_MAIN
         caps = {"sparse": quantize(make_capture(n, M_MAIN, sparse=True)),
                 "dense": quantize(make_capture(n, M_MAIN, sparse=False))}
@@ -2296,7 +2505,7 @@ def main() -> int:
         kernels_flat_complex_main_shape(xq, caps["dense"], pipe, rows)
         del xq
         torch.cuda.empty_cache()
-        kernels_long_window(rows)
+        dwell = kernels_long_window(rows)
         emit("kernels", small_shapes=small, main_shape="M=64 T=262144, dense "
              "capture", block_shape=f"M=64 T={BLOCK_FRAMES + HALO_FRAMES}, "
              "block 1 of the dense capture", long_window_shape="M=1 "
@@ -2305,7 +2514,7 @@ def main() -> int:
         launches = phase_main_path(pipe, caps)
         launches.update(phase_streaming(pipe, caps))
         launches.update(phase_routes(pipe, caps))
-        launches.update(phase_wideband(rows))
+        launches.update(phase_wideband(rows, dwell))
         launches.update(phase_stats_batch(pipe, caps))
         launches.update(phase_predict())
         phase_track()

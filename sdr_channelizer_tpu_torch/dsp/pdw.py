@@ -369,7 +369,7 @@ def extract_pdws(
     """
     mag, phase_deg, sat = _prep_streams(iq, cfg.saturation_level)
     if noise_floor is None:
-        noise_floor = median(mag)
+        noise_floor = noise_floor_1d(mag, ops=ops)
     return _extract_wideband_from_streams(mag, phase_deg, sat, cfg,
                                           noise_floor, stats=stats, ops=ops)
 
@@ -386,7 +386,7 @@ def extract_pdws_planes(
     :func:`extract_pdws`."""
     mag, phase_deg, sat = _prep_streams_planes(yr, yi, cfg.saturation_level)
     if noise_floor is None:
-        noise_floor = median(mag)
+        noise_floor = noise_floor_1d(mag, ops=ops)
     return _extract_wideband_from_streams(mag, phase_deg, sat, cfg,
                                           noise_floor, stats=stats, ops=ops)
 
@@ -401,12 +401,19 @@ def extract_pdws_channelized_streams(
     ops=kernels.KERNELS,
 ) -> PdwBatch:
     """Per-channel extraction from time-major (T, M) detection streams
-    (``sat`` a bool or 0/1 mask); ``stats`` as in the module docstring."""
+    (``sat`` a bool or 0/1 mask); ``stats`` as in the module docstring.
+    On the kernel tail the streams are flipped once, and a floor that is
+    not given is taken on the flipped magnitude."""
+    if _kernel_tail(stats, mag):
+        cm = ops.cm_streams(mag.contiguous(), phase_deg.contiguous(),
+                            sat.contiguous())
+        if noise_floor is None:
+            noise_floor = noise_floor_cm(cm[0], mag.shape[1], mag.shape[0],
+                                         ops=ops)
+        return _extract_channelized_pallas_stats(
+            mag, None, None, cfg, noise_floor, cm_streams=cm, ops=ops)
     if noise_floor is None:
         noise_floor = median(mag, dim=0)
-    if _kernel_tail(stats, mag):
-        return _extract_channelized_pallas_stats(
-            mag, phase_deg, sat, cfg, noise_floor, ops=ops)
     return extract_pdws_core(mag.T.contiguous(), phase_deg.T.contiguous(),
                              sat.T.contiguous().to(torch.bool), noise_floor,
                              cfg)
@@ -444,6 +451,13 @@ def noise_floor_cm(mag_cm: torch.Tensor, m: int, t_len: int,
     columns of the channel-major magnitude (exact median over the whole
     capture, ``create_pdws_channelized.m:73``)."""
     return ops.noise_floor(mag_cm[:m], t_len)
+
+
+def noise_floor_1d(mag: torch.Tensor, ops=kernels.KERNELS) -> torch.Tensor:
+    """The wideband floor, the median of the whole 1-D magnitude
+    (``create_pdws.m``), as a 0-d tensor: the noise floor kernel's one
+    row."""
+    return ops.noise_floor(mag.reshape(1, -1), mag.numel()).reshape(())
 
 
 def _extract_channelized_cm2(
@@ -589,7 +603,8 @@ def extract_pdws_channelized_streams_cm(
     floor), ``mag_cm`` / ``dph_cm`` / ``sat_cm`` the channel-major (M, T)
     streams, ``sat_cm`` a 0/1 mask."""
     if noise_floor is None:
-        noise_floor = median(mag, dim=0)
+        noise_floor = noise_floor_cm(mag_cm, mag.shape[1], mag.shape[0],
+                                     ops=ops)
     return _extract_channelized_pallas_stats(
         mag, None, None, cfg, noise_floor,
         cm_streams=(mag_cm, dph_cm, sat_cm), ops=ops)

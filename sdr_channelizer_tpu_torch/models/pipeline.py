@@ -140,15 +140,14 @@ class ChannelizerPipeline:
                 mag_cm, dph_cm, satcs_cm, cfg, nf, t_len, m, ops=ops)
             return nf, mag_cm, batch
         if route == "cm":
-            mag, mag_cm, dph_cm, sat_cm = front("cm")
-            nf = median(mag, dim=0)
-            batch = pdwmod.extract_pdws_channelized_streams_cm(
-                mag, mag_cm, dph_cm, sat_cm, cfg, noise_floor=nf, ops=ops)
-            return nf, mag, batch
-        mag, ph, sat = front("flat")
-        nf = median(mag, dim=0)
-        batch = pdwmod.extract_pdws_channelized_streams(
-            mag, ph, sat > 0.5, cfg, noise_floor=nf, stats="pallas", ops=ops)
+            mag, *cm = front("cm")
+        else:
+            # flipped once, ahead of the floor; the tail takes the flip
+            mag, ph, sat = front("flat")
+            cm = ops.cm_streams(mag, ph, sat > 0.5)
+        nf = pdwmod.noise_floor_cm(cm[0], m, mag.shape[0], ops=ops)
+        batch = pdwmod._extract_channelized_pallas_stats(
+            mag, None, None, cfg, nf, cm_streams=tuple(cm), ops=ops)
         return nf, mag, batch
 
     def _check_products(self) -> None:
@@ -328,12 +327,12 @@ class WidebandPdwPipeline:
         """Complex capture -> (noise floor, PdwBatch).  ``plain=True`` runs
         the kernels' plain PyTorch versions on the same device, for checking
         one against the other."""
+        ops = kernels.PLAIN if plain else kernels.KERNELS
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.complex64)
         mag, ph, sat = pdwmod._prep_streams(x, self.pdw_cfg.saturation_level)
-        nf = median(mag)
+        nf = pdwmod.noise_floor_1d(mag, ops=ops)
         batch = pdwmod._extract_wideband_from_streams(
-            mag, ph, sat, self.pdw_cfg, nf,
-            ops=kernels.PLAIN if plain else kernels.KERNELS)
+            mag, ph, sat, self.pdw_cfg, nf, ops=ops)
         return nf, batch
 
     def step(self, x) -> Tuple[torch.Tensor, PdwBatch]:

@@ -13,185 +13,63 @@
 // trailing edge a 1 -> 0 step.  Out: (2R, T) float32, rows [0, R) the
 // inclusive count of leading edges, rows [R, 2R) that of trailing edges.
 //
-// What bounds it on an H100: bytes (4 read, 8 written per sample).  In the
-// channel-major form the scan along time is a dependency chain inside one
-// block, so latency is what is paid.
+// What bounds it on an H100: bytes (4 read, 8 written per sample).
 //
-// Design: one block per row walks time in tiles of kThreads * kItems
-// samples and carries (state, lead count, trail count) from tile to tile in
-// registers: the loop inside the block takes the place of the TPU's
-// sequential grid.  In a tile every thread owns kItems consecutive samples;
-// a block scan of the "last non-hold transfer" gives the state before the
-// thread's first sample, the thread walks its samples, and a second block
-// scan of its (leading, trailing) edge counts, packed into one int, gives
-// its base.  Tiles pass through shared memory so that global loads and
-// stores are coalesced.  Counts are int32 and leave as float32, exact below
-// 2^24.  R blocks fill R of the 132 multiprocessors.
-//
-// The time-major form (`latch_tm_kernel`) reads mag (T, M) and is a scan
-// across time that is parallel over segments of it, so that its grid grows
-// with T: a block owns one segment of tm_seg<G>() frames of G neighbouring
-// channels (G = 1 at M = 1, where a segment is 4096 frames; else 8 channels
-// and 512 frames, each row of the tile read as one 32-byte sector).  The
-// carry from segment to segment is a summary of the segment that does not
-// depend on the state it enters in: f, its first non-hold transfer (0 if
-// none); l, its last; L and R, the leading and trailing edges strictly after
-// the position of f, where the state is known inside the segment.  Two
-// summaries compose as f = A.f ? A.f : B.f, l = B.l ? B.l : A.l, the counts
-// add, and B's first transfer makes an edge when A.l is its opposite.
-// Applied to an entry state s, a prefix adds the edge at f given s, and
-// leaves the state l ? l > 0 : s.  The summaries of a segment's channels
-// are chained by a single-pass scan with decoupled look-back (Merrill and
-// Garland, NVIDIA 2016): a block takes its segment from an atomic ticket
-// (so every earlier segment is already running), publishes its own
-// aggregate, walks back over its predecessors' published words 32 at a time
-// until it meets an inclusive prefix, and publishes its own inclusive
-// prefix.  Flag and summary are one 64-bit word, stored with release and
-// read with acquire semantics.  Then the block walks its samples from the
-// known entry state and base: every sample is read once and both counts
-// written once, 12 bytes a sample, which bound it on an H100.  The tile
-// passes through shared memory both ways, so that global loads and stores
-// are coalesced (16 bytes a thread at M = 1); the wrapper zeroes the ticket
-// and status words for each call.
+// Design: one kernel serves both layouts.  It is a scan across time that is
+// parallel over segments of it, so that its grid grows with T: a block owns
+// one segment of seg_frames<G>() frames of G neighbouring rows (G = 1 for
+// the channel-major form and for the time-major one at M = 1, where a
+// segment is 4096 frames of one contiguous row; else 8 channels and 512
+// frames, each row of the tile read as one 32-byte sector).  The carry from
+// segment to segment is a summary of the segment that does not depend on
+// the state it enters in: f, its first non-hold transfer (0 if none); l, its
+// last; L and R, the leading and trailing edges strictly after the position
+// of f, where the state is known inside the segment.  Two summaries compose
+// as f = A.f ? A.f : B.f, l = B.l ? B.l : A.l, the counts add, and B's first
+// transfer makes an edge when A.l is its opposite.  Applied to an entry
+// state s, a prefix adds the edge at f given s, and leaves the state
+// l ? l > 0 : s.  The summaries of a row's segments are chained by a
+// single-pass scan with decoupled look-back (Merrill and Garland, NVIDIA
+// 2016): a block takes its (row group, segment) from an atomic ticket,
+// segment-major, so that every earlier segment of its rows is already
+// running and all rows progress together; it publishes its own aggregate,
+// walks back over its row's predecessors' published words 32 at a time until
+// it meets an inclusive prefix (the row's first segment publishes one at
+// once: its entry is the row's entry state, never the previous row's last
+// segment), and publishes its own inclusive prefix.  Flag and summary are
+// one 64-bit word, stored with release and read with acquire semantics;
+// counts inside a segment and its prefix are full ints.  Then the block
+// walks its samples from the known entry state and base: every sample is
+// read once and both counts written once, 12 bytes a sample, which bound it
+// on an H100.  The tile passes through shared memory both ways, so that
+// global loads and stores are coalesced (16 bytes a thread where a row's
+// segment starts on a 16-byte boundary, one float a thread where it does
+// not); the wrapper zeroes the ticket and status words for each call.  Counts
+// leave as float32, exact below 2^24.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
-
-// later over earlier: the last transfer that is not a hold
-__device__ __forceinline__ int compose(int earlier, int later) {
-  return later != 0 ? later : earlier;
-}
-
-__global__ void __launch_bounds__(kThreads)
-latch_cm_kernel(const float* __restrict__ mag_cm,
-                const float* __restrict__ lead, const float* __restrict__ trail,
-                const float* __restrict__ entry, float* __restrict__ out,
-                int R, int m_real, int T) {
-  __shared__ float s_in[kTile];
-  __shared__ float s_lead[kTile];
-  __shared__ float s_trail[kTile];
-  __shared__ int s_warp[kWarps];
-
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // rows past m_real get +inf thresholds: they reset always, never open
-  const float inf = __int_as_float(0x7f800000);
-  const float th_lead = r < m_real ? lead[r] : inf;
-  const float th_trail = r < m_real ? trail[r] : inf;
-  const float* row = mag_cm + (size_t)r * T;
-  float* out_lead = out + (size_t)r * T;
-  float* out_trail = out + (size_t)(R + r) * T;
-
-  // carried across tiles
-  int state_in = (entry != nullptr && r < m_real && entry[r] > 0.5f) ? 1 : 0;
-  int lead_base = 0, trail_base = 0;
-
-  for (int t0 = 0; t0 < T; t0 += kTile) {
-    const int n = min(kTile, T - t0);
-    for (int i = tid; i < n; i += kThreads) s_in[i] = row[t0 + i];
-    __syncthreads();
-
-    // transfers of this thread's samples and their composition
-    int tr[kItems];
-    int agg = 0;
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int idx = tid * kItems + i;
-      int t = 0;
-      if (idx < n) {
-        const float m = s_in[idx];
-        t = (m >= th_lead ? 1 : 0) - (m <= th_trail ? 1 : 0);
-      }
-      tr[i] = t;
-      agg = compose(agg, t);
-    }
-    // block scan (exclusive) of the composition
-    int incl = agg;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(sdr::kFullMask, incl, off);
-      if (lane >= off) incl = compose(o, incl);
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    int before = 0;  // composition of all earlier warps
-    for (int w = 0; w < warp; ++w) before = compose(before, s_warp[w]);
-    int excl = __shfl_up_sync(sdr::kFullMask, incl, 1);
-    if (lane == 0) excl = 0;
-    excl = compose(before, excl);
-    int state = excl != 0 ? (excl > 0 ? 1 : 0) : state_in;
-    int tile_tr = before;  // whole tile's composition, for the carry
-    for (int w = warp; w < kWarps; ++w) tile_tr = compose(tile_tr, s_warp[w]);
-
-    // walk the samples: states, edges, local counts
-    int cnt = 0;  // leading edges in the low half, trailing in the high
-    int edge[kItems];
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int prev = state;
-      if (tr[i] != 0) state = tr[i] > 0 ? 1 : 0;
-      const int le = state & (1 - prev), te = prev & (1 - state);
-      cnt += le + (te << 16);
-      edge[i] = cnt;
-    }
-    __syncthreads();  // s_warp is read above, rewritten below
-    int cincl = sdr::warp_inclusive_sum(cnt, lane);
-    if (lane == 31) s_warp[warp] = cincl;
-    __syncthreads();
-    int cbefore = 0, ctotal = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int v = s_warp[w];
-      if (w < warp) cbefore += v;
-      ctotal += v;
-    }
-    const int cexcl = cbefore + cincl - cnt;
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int idx = tid * kItems + i;
-      const int c = cexcl + edge[i];
-      s_lead[idx] = (float)(lead_base + (c & 0xffff));
-      s_trail[idx] = (float)(trail_base + (c >> 16));
-    }
-    __syncthreads();
-    for (int i = tid; i < n; i += kThreads) {
-      out_lead[t0 + i] = s_lead[i];
-      out_trail[t0 + i] = s_trail[i];
-    }
-    // carry (every thread computes the same values)
-    if (tile_tr != 0) state_in = tile_tr > 0 ? 1 : 0;
-    lead_base += ctotal & 0xffff;
-    trail_base += ctotal >> 16;
-    __syncthreads();  // tile buffers and s_warp are reused by the next tile
-  }
-}
-
-// ---- the time-major scan
-
-constexpr int kTmThreads = 256;
-constexpr int kTmItems = 16;               // samples a thread owns
-constexpr int kTmChunk = kTmItems + 1;     // a thread's stretch, padded
+constexpr int kThreads = 256;
+constexpr int kItems = 16;               // samples a thread owns
+constexpr int kChunk = kItems + 1;       // a thread's stretch, padded
 constexpr unsigned long long kAggregate = 1, kInclusive = 2;
 
 template <int G>
-__host__ __device__ constexpr int tm_seg() {
-  return kTmThreads / G * kTmItems;
+__host__ __device__ constexpr int seg_frames() {
+  return kThreads / G * kItems;
 }
 
 // a row of the tile: padded so that the channels of a frame row land in
 // different banks
 template <int G>
-__host__ __device__ constexpr int tm_row() {
-  return kTmThreads / G * kTmChunk + (G > 1 ? 8 : 0);
+__host__ __device__ constexpr int tile_row() {
+  return kThreads / G * kChunk + (G > 1 ? 8 : 0);
 }
 
-__device__ __forceinline__ int tm_slot(int t) {
-  return (t / kTmItems) * kTmChunk + (t % kTmItems);
+__device__ __forceinline__ int slot(int t) {
+  return (t / kItems) * kChunk + (t % kItems);
 }
 
 struct Summary {
@@ -247,9 +125,10 @@ __device__ __forceinline__ void apply(const Summary& p, int& s, int& lead,
   if (p.l != 0) s = p.l > 0 ? 1 : 0;
 }
 
-// The exclusive prefix of segment `seg` of one channel, by one warp:
-// publish the segment's aggregate, walk back over the predecessors' words
-// until an inclusive prefix, publish the inclusive prefix.
+// The exclusive prefix of segment `seg` of one row, by one warp: publish
+// the segment's aggregate, walk back over the predecessors' words until an
+// inclusive prefix, publish the inclusive prefix.  `st` is the row's own
+// status words: the walk ends at its segment 0.
 __device__ Summary look_back(unsigned long long* st, int seg,
                              const Summary& total, int lane) {
   const Summary none = {0, 0, 0, 0};
@@ -282,65 +161,73 @@ __device__ Summary look_back(unsigned long long* st, int seg,
   return run;
 }
 
+// Sample (t, c) of the magnitude lies at mag[t * ts + c * cs]: time-major
+// (T, M) has ts = M, cs = 1; channel-major (R, T) has ts = 1, cs = T.
+// Rows c >= m_real get +inf thresholds: they reset always, never open.
 template <int G>
-__global__ void __launch_bounds__(kTmThreads)
-latch_tm_kernel(const float* __restrict__ mag,  // (T, M)
-                const float* __restrict__ lead, const float* __restrict__ trail,
-                const float* __restrict__ entry, float* __restrict__ out,
-                unsigned long long* __restrict__ status,  // ticket, (M, n_seg)
-                int M, int T, int n_seg, int vec) {
-  constexpr int kTpc = kTmThreads / G;  // threads a channel
-  constexpr int kWpc = kTpc / 32;       // warps a channel
-  constexpr int kSeg = tm_seg<G>();
-  constexpr int kRow = tm_row<G>();
+__global__ void __launch_bounds__(kThreads)
+latch_scan_kernel(const float* __restrict__ mag, long long ts, long long cs,
+                  const float* __restrict__ lead,
+                  const float* __restrict__ trail,
+                  const float* __restrict__ entry, float* __restrict__ out,
+                  // the ticket, then (R, n_seg) status words
+                  unsigned long long* __restrict__ status,
+                  int R, int m_real, int T, int n_seg) {
+  constexpr int kTpc = kThreads / G;  // threads a row
+  constexpr int kWpc = kTpc / 32;     // warps a row
+  constexpr int kSeg = seg_frames<G>();
+  constexpr int kRow = tile_row<G>();
   // s_a holds the magnitudes, then the leading-edge counts
   __shared__ float s_a[G * kRow];
   __shared__ float s_b[G * kRow];
-  __shared__ unsigned long long s_warp[kTmThreads / 32];
+  __shared__ unsigned long long s_warp[kThreads / 32];
   __shared__ unsigned long long s_prefix[G];
   __shared__ int s_ticket;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (tid == 0) s_ticket = (int)atomicAdd(status, 1ull);
   __syncthreads();
-  const int n_groups = (M + G - 1) / G;
+  // segment-major: every row group's segment s before any segment s + 1
+  const int n_groups = (R + G - 1) / G;
   const int seg = s_ticket / n_groups, grp = s_ticket - seg * n_groups;
-  const int c0 = grp * G, nc = min(G, M - c0);
+  const int c0 = grp * G, nc = min(G, R - c0);
   const int t0 = seg * kSeg, n = min(kSeg, T - t0);
-  const int g = tid / kTpc, r = tid % kTpc;  // channel in the group, rank
+  const int g = tid / kTpc, r = tid % kTpc;  // row in the group, rank
   const bool live = g < nc;                  // the same for a whole warp
   const int c = c0 + (live ? g : 0);
 
-  // the tile: element i is frame i / nc, channel i % nc
-  const float* src = mag + (size_t)t0 * M + c0;
-  if (G == 1 && vec) {
+  // the tile: element i is frame i / nc, row i % nc
+  const float* src = mag + t0 * ts + c0 * cs;
+  if (G == 1 && ts == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     const float4* src4 = reinterpret_cast<const float4*>(src);
-    for (int i = tid; i < n / 4; i += kTmThreads) {
+    for (int i = tid; i < n / 4; i += kThreads) {
       const float4 v = src4[i];
-      float* d = s_a + tm_slot(4 * i);  // four slots of one stretch
+      float* d = s_a + slot(4 * i);  // four slots of one stretch
       d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
     }
-    for (int t = n / 4 * 4 + tid; t < n; t += kTmThreads)
-      s_a[tm_slot(t)] = src[t];
+    for (int t = n / 4 * 4 + tid; t < n; t += kThreads)
+      s_a[slot(t)] = src[t];
   } else {
-    for (int i = tid; i < n * nc; i += kTmThreads) {
+    for (int i = tid; i < n * nc; i += kThreads) {
       const int t = i / nc, gg = i - t * nc;
-      s_a[gg * kRow + tm_slot(t)] = src[(size_t)t * M + gg];
+      s_a[gg * kRow + slot(t)] = src[t * ts + gg * cs];
     }
   }
   __syncthreads();
 
   // this thread's transfers and their summary
-  const float th_lead = live ? lead[c] : 0.0f;
-  const float th_trail = live ? trail[c] : 0.0f;
-  float* mine_a = s_a + g * kRow + r * kTmChunk;
-  float* mine_b = s_b + g * kRow + r * kTmChunk;
-  int tr[kTmItems];
+  const float inf = __int_as_float(0x7f800000);
+  const bool real = live && c < m_real;
+  const float th_lead = real ? lead[c] : inf;
+  const float th_trail = real ? trail[c] : inf;
+  float* mine_a = s_a + g * kRow + r * kChunk;
+  float* mine_b = s_b + g * kRow + r * kChunk;
+  int tr[kItems];
   Summary own = {0, 0, 0, 0};
 #pragma unroll
-  for (int i = 0; i < kTmItems; ++i) {
+  for (int i = 0; i < kItems; ++i) {
     int t = 0;
-    if (live && r * kTmItems + i < n) {
+    if (live && r * kItems + i < n) {
       const float m = mine_a[i];
       t = (m >= th_lead ? 1 : 0) - (m <= th_trail ? 1 : 0);
     }
@@ -356,7 +243,7 @@ latch_tm_kernel(const float* __restrict__ mag,  // (T, M)
     }
   }
 
-  // scan of the summaries over the channel's threads
+  // scan of the summaries over the row's threads
   unsigned long long incl = pack(own, 0);
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -368,13 +255,13 @@ latch_tm_kernel(const float* __restrict__ mag,  // (T, M)
   if (lane == 0) excl_w = pack(Summary{0, 0, 0, 0}, 0);
   if (lane == 31) s_warp[warp] = incl;
   __syncthreads();
-  const int w0 = g * kWpc;  // the channel's first warp
+  const int w0 = g * kWpc;  // the row's first warp
   Summary before = {0, 0, 0, 0};
   for (int w = w0; w < warp; ++w)
     before = combine(before, unpack_summary(s_warp[w]));
   const Summary excl = combine(before, unpack_summary(excl_w));
 
-  // the prefix of the segments before this one, by the channel's first warp
+  // the prefix of the row's segments before this one, by its first warp
   if (warp == w0 && live) {
     Summary total = before;  // before is empty in the first warp
     for (int w = w0; w < w0 + kWpc; ++w)
@@ -386,12 +273,12 @@ latch_tm_kernel(const float* __restrict__ mag,  // (T, M)
   __syncthreads();
 
   if (live) {
-    int state = (entry != nullptr && entry[c] > 0.5f) ? 1 : 0;
+    int state = (entry != nullptr && real && entry[c] > 0.5f) ? 1 : 0;
     int n_lead = 0, n_trail = 0;
     apply(unpack_summary(s_prefix[g]), state, n_lead, n_trail);
     apply(excl, state, n_lead, n_trail);
 #pragma unroll
-    for (int i = 0; i < kTmItems; ++i) {
+    for (int i = 0; i < kItems; ++i) {
       const int prev = state;
       if (tr[i] != 0) state = tr[i] > 0 ? 1 : 0;
       n_lead += state & (1 - prev);
@@ -403,22 +290,43 @@ latch_tm_kernel(const float* __restrict__ mag,  // (T, M)
   __syncthreads();
   if (live) {
     float* out_lead = out + (size_t)c * T + t0;
-    float* out_trail = out + (size_t)(M + c) * T + t0;
+    float* out_trail = out + (size_t)(R + c) * T + t0;
     const float* row_a = s_a + g * kRow;
     const float* row_b = s_b + g * kRow;
     for (int t = r; t < n; t += kTpc) {
-      out_lead[t] = row_a[tm_slot(t)];
-      out_trail[t] = row_b[tm_slot(t)];
+      out_lead[t] = row_a[slot(t)];
+      out_trail[t] = row_b[slot(t)];
     }
   }
 }
 
-// channels a block of the time-major scan owns
+// rows a block of the time-major scan owns
 inline int tm_group(int M) { return M == 1 ? 1 : 8; }
 
-inline int tm_segments(int M, int T) {
-  const int seg = M == 1 ? tm_seg<1>() : tm_seg<8>();
+inline int segments(int G, int T) {
+  const int seg = G == 1 ? seg_frames<1>() : seg_frames<8>();
   return (T + seg - 1) / seg;
+}
+
+int launch(const void* mag, long long ts, long long cs, const void* lead,
+           const void* trail, const void* entry, void* out, void* scratch,
+           int R, int m_real, int T, int G, void* stream) {
+  const int n_seg = segments(G, T);
+  const int blocks = n_seg * ((R + G - 1) / G);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mag);
+  const float* l = static_cast<const float*>(lead);
+  const float* t = static_cast<const float*>(trail);
+  const float* e = static_cast<const float*>(entry);
+  float* o = static_cast<float*>(out);
+  unsigned long long* st = static_cast<unsigned long long*>(scratch);
+  if (G == 1)
+    latch_scan_kernel<1><<<blocks, kThreads, 0, s>>>(m, ts, cs, l, t, e, o,
+                                                     st, R, m_real, T, n_seg);
+  else
+    latch_scan_kernel<8><<<blocks, kThreads, 0, s>>>(m, ts, cs, l, t, e, o,
+                                                     st, R, m_real, T, n_seg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -427,7 +335,14 @@ inline int tm_segments(int M, int T) {
 // the ticket, then one status word per channel and segment.
 extern "C" long long sdr_latch_tm_scratch_words(int M, int T) {
   if (M <= 0 || T <= 0) return 1;
-  return 1 + (long long)M * tm_segments(M, T);
+  return 1 + (long long)M * segments(tm_group(M), T);
+}
+
+// The same for the channel-major scan of (R, T): one word per row and
+// segment of seg_frames<1>() frames.
+extern "C" long long sdr_latch_cm_scratch_words(int R, int T) {
+  if (R <= 0 || T <= 0) return 1;
+  return 1 + (long long)R * segments(1, T);
 }
 
 // mag: (T, M) float32 contiguous, time-major; lead, trail: (M,) float32;
@@ -439,37 +354,19 @@ extern "C" int sdr_latch_cumsums_tm(const void* mag, const void* lead,
                                     void* out, void* scratch, int M, int T,
                                     void* stream) {
   if (M <= 0 || T <= 0) return 0;
-  const int n_seg = tm_segments(M, T);
-  const int G = tm_group(M);
-  const int blocks = n_seg * ((M + G - 1) / G);
-  const int vec = (reinterpret_cast<uintptr_t>(mag) & 15) == 0 ? 1 : 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mag);
-  const float* l = static_cast<const float*>(lead);
-  const float* t = static_cast<const float*>(trail);
-  const float* e = static_cast<const float*>(entry);
-  float* o = static_cast<float*>(out);
-  unsigned long long* st = static_cast<unsigned long long*>(scratch);
-  if (G == 1)
-    latch_tm_kernel<1><<<blocks, kTmThreads, 0, s>>>(m, l, t, e, o, st, M, T,
-                                                     n_seg, vec);
-  else
-    latch_tm_kernel<8><<<blocks, kTmThreads, 0, s>>>(m, l, t, e, o, st, M, T,
-                                                     n_seg, vec);
-  return (int)cudaGetLastError();
+  return launch(mag, M, 1, lead, trail, entry, out, scratch, M, M, T,
+                tm_group(M), stream);
 }
 
 // mag_cm: (R, T) float32 contiguous; lead, trail: (m_real,) float32, the
 // thresholds of the first m_real rows; entry: (m_real,) float32 (> 0.5 = the
-// latch enters active) or null for all inactive; out: (2R, T) float32.
+// latch enters active) or null for all inactive; out: (2R, T) float32;
+// scratch: sdr_latch_cm_scratch_words(R, T) 64-bit words, all zero.
 extern "C" int sdr_latch_cumsums_cm(const void* mag_cm, const void* lead,
                                     const void* trail, const void* entry,
-                                    void* out, int R, int m_real, int T,
-                                    void* stream) {
+                                    void* out, void* scratch, int R,
+                                    int m_real, int T, void* stream) {
   if (R <= 0 || T <= 0) return 0;
-  latch_cm_kernel<<<R, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mag_cm), static_cast<const float*>(lead),
-      static_cast<const float*>(trail), static_cast<const float*>(entry),
-      static_cast<float*>(out), R, m_real, T);
-  return (int)cudaGetLastError();
+  return launch(mag_cm, 1, T, lead, trail, entry, out, scratch, R, m_real, T,
+                1, stream);
 }

@@ -3,11 +3,12 @@ cumulative counts.
 
 The counterparts of ``pallas_latch_cumsums_cm`` (channel-major magnitude in)
 and ``pallas_latch_cumsums`` (time-major magnitude in) of the JAX package.
-``latch_cumsums_cm`` and ``latch_cumsums`` launch the CUDA scans
-(``csrc/latch.cu``) for a CUDA tensor, or raise; for a CPU tensor they take
-``latch_cumsums_cm_plain`` and ``latch_cumsums_plain``.  The time-major scan
-runs over segments of time in parallel and chains them by decoupled
-look-back; its status words are allocated, zeroed, for each call.
+``latch_cumsums_cm`` and ``latch_cumsums`` launch the CUDA scan
+(``csrc/latch.cu``, one kernel for both layouts) for a CUDA tensor, or
+raise; for a CPU tensor they take ``latch_cumsums_cm_plain`` and
+``latch_cumsums_plain``.  The scan runs over segments of time in parallel
+and chains each row's segments by decoupled look-back; its status words are
+allocated, zeroed, for each call.
 
 The latch follows the kernel's three-state rule: a sample's transfer is
 ``(mag >= lead) - (mag <= trail)`` (+1 set, -1 reset, 0 hold), so a sample
@@ -88,13 +89,15 @@ def _library():
     if not getattr(lib, "_sdr_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.sdr_latch_cumsums_cm.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.sdr_latch_cumsums_cm.restype = ci
         lib.sdr_latch_cumsums_tm.argtypes = [
             vp, vp, vp, vp, vp, vp, ci, ci, vp]
         lib.sdr_latch_cumsums_tm.restype = ci
-        lib.sdr_latch_tm_scratch_words.argtypes = [ci, ci]
-        lib.sdr_latch_tm_scratch_words.restype = ctypes.c_longlong
+        for fn in (lib.sdr_latch_tm_scratch_words,
+                   lib.sdr_latch_cm_scratch_words):
+            fn.argtypes = [ci, ci]
+            fn.restype = ctypes.c_longlong
         lib._sdr_typed = True
     return lib
 
@@ -137,11 +140,14 @@ def latch_cumsums_cm(
     lead, trail = on_device(lead_thresh), on_device(trail_thresh)
     entry = None if entry_active is None else on_device(entry_active)
     lib = _library()
+    # the segments' ticket and status words, zeroed for each call
+    scratch = torch.zeros(lib.sdr_latch_cm_scratch_words(r, t_len),
+                          dtype=torch.int64, device=mag_cm.device)
     with torch.cuda.device(mag_cm.device):
         code = lib.sdr_latch_cumsums_cm(
             mag_cm.data_ptr(), lead.data_ptr(), trail.data_ptr(),
-            None if entry is None else entry.data_ptr(), out.data_ptr(), r,
-            m_real, t_len,
+            None if entry is None else entry.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), r, m_real, t_len,
             torch.cuda.current_stream(mag_cm.device).cuda_stream)
     _build.check_launch(code, "sdr_latch_cumsums_cm")
     launches += 1
