@@ -27,12 +27,16 @@ time-major (a pulse over many segments, holds over whole segments, a latch
 entered active with no transfer, one channel of 2^24 - 1 samples) and
 channel-major (T one frame either side of a segment, pad rows, rows that
 start off a 16-byte boundary), the noise floor's select (candidates that
-overflow its buffer, a sample that misses the median, NaNs, subnormals) and
-the channelizer body with T on tile boundaries, where the look-ahead frame
-is taken.  Every route, wideband extraction and ``predict`` take their
+overflow its buffer, a sample that misses the median, NaNs, subnormals),
+the pulse statistics on crafted runs (every length class and its
+boundaries, constant runs and ties, +-0, +-inf, subnormals and NaNs of both
+signs, runs cut at T and windows past it; B10's list of live tiles built on
+the card) and the channelizer body with T on tile boundaries, where the
+look-ahead frame is taken.  Every route, wideband extraction and ``predict`` take their
 noise floor with the select kernel, and its launches are counted on each.
 ``--profile`` adds phases that print the device time of a step by kernel
-name and where a streamed block's time goes.  There is no CPU path:
+name (and the statistics kernels' share of it) and where a streamed
+block's time goes.  There is no CPU path:
 without a CUDA device the script exits at once with code 2 and prints no
 result.
 
@@ -257,6 +261,75 @@ def dft_ops(m: int, p: int, t_len: int) -> dict:
 
 def n_bytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_times(fn, steps: int) -> list:
+    """Device time by kernel name (memsets included) over ``steps`` calls of
+    ``fn``, from ``torch.profiler``: rows of ``kernel``, ``calls_per_step``,
+    ``ms_per_step``, the largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        is_kernel = getattr(ev, "device_type", None) is not None and \
+            "cuda" in str(ev.device_type).lower()
+        if is_kernel and dev_us > 0:
+            rows.append({"kernel": ev.key[:80], "calls_per_step":
+                         ev.count / steps,
+                         "ms_per_step": dev_us / 1e3 / steps})
+    rows.sort(key=lambda r: -r["ms_per_step"])
+    return rows
+
+
+# the statistics rows' calls, by row name, kept with ``--profile`` only
+# (they hold their inputs, which would raise the later phases' peak memory)
+STATS_CALLS = {}
+
+
+def stats_device_ms(name: str, fn) -> float:
+    """``device_ms`` of a statistics row's call; with ``--profile`` the call
+    is kept, and that phase times it alone."""
+    if "--profile" in sys.argv[1:]:
+        STATS_CALLS[name] = fn
+    return device_ms(fn)
+
+
+def window_sort_ms(mag, dph, calls, t_len: int):
+    """``library_ms`` of the pulse statistics: ``torch.sort`` along the
+    window of the live slots' windows of both streams, padded with +inf, one
+    sort a call; the windows are gathered outside the timer.  ``calls``:
+    ``(toa, te, rows, window)`` of each call.  None where no slot is live."""
+    import torch
+
+    mats = []
+    for toa, te, rows, w in calls:
+        toa, te, rows = (x.reshape(-1).to(torch.int64) for x in (toa, te, rows))
+        live = (toa >= 0) & (toa < t_len)
+        if not bool(live.any()):
+            continue
+        toa, te, rows = toa[live], te[live], rows[live]
+        n = torch.minimum(toa + torch.clamp(te - toa + 1, max=w),
+                          torch.full_like(toa, t_len)) - toa
+        pos = torch.arange(max(int(n.max()), 1), device=toa.device)
+        flat = rows[:, None] * mag.stride(0) + (toa[:, None] + pos).clamp(
+            max=mag.shape[1] - 1)
+        mat = torch.cat([mag.reshape(-1)[flat], dph.reshape(-1)[flat]])
+        mask = torch.cat([pos < n[:, None], pos < n[:, None] - 1])
+        mats.append(torch.where(mask, mat, torch.full_like(mat, float("inf"))))
+    if not mats:
+        return None
+    return time_ms(lambda: [torch.sort(x, dim=1) for x in mats])
 
 
 def compare_flat(xq, taps, bit_width, sat_level, got, where: str,
@@ -544,6 +617,188 @@ def kernels_small():
         torch.cuda.synchronize()
         cases.append({"case": where, **res})
     return cases
+
+
+def stats_nan_high(mag, dph, sat, toa, te, rows, window: int, t_len: int):
+    """The statistics as a sort gives them with NaNs above every number,
+    the padding included: the plain version's gather with NaN, not +inf, in
+    the unused places of a window.  It differs from the plain version only
+    where NaNs reach the middle ranks of a run (ROADMAP C)."""
+    import torch
+
+    toa, te, rows = (x.reshape(-1).to(torch.int64) for x in (toa, te, rows))
+    live = (toa >= 0) & (toa < t_len)
+    plen = torch.clamp(te - toa + 1, max=window)
+    n_m = (torch.minimum(toa + plen, torch.full_like(toa, t_len)) - toa)
+    n_m = torch.where(live, n_m.clamp(min=0), torch.zeros_like(n_m))
+    n_d = (torch.minimum(toa + plen - 1, torch.full_like(toa, t_len)) - toa)
+    n_d = torch.where(live, n_d.clamp(min=0), torch.zeros_like(n_d))
+    pos = torch.arange(max(int(n_m.max()), 1), device=toa.device)
+    flat = rows[:, None] * mag.stride(0) + (toa.clamp(min=0)[:, None]
+                                            + pos).clamp(max=mag.shape[1] - 1)
+
+    def med(stream, n):
+        # +NaN in every unused place and for every NaN (torch.sort on the
+        # card puts a NaN with its sign bit set lowest where it sorts by
+        # radix)
+        x = stream.reshape(-1)[flat]
+        x = torch.where((pos < n[:, None]) & ~torch.isnan(x), x,
+                        torch.full_like(x, float("nan")))
+        x = torch.sort(x, dim=1).values
+        lo = x.gather(1, ((n - 1) // 2).clamp(min=0)[:, None])[:, 0]
+        hi = x.gather(1, (n // 2)[:, None].clamp(max=x.shape[1] - 1))[:, 0]
+        out = torch.where(n > 0, 0.5 * (lo + hi), torch.full_like(lo, float(
+            "nan")))
+        return torch.where(live, out, torch.zeros_like(out))
+
+    outs = [med(mag, n_m), med(dph, n_d)]
+    if sat is not None:
+        x = sat.reshape(-1)[flat]
+        outs.append((((x > 0.5) & (pos >= 1) & (pos < n_d[:, None])).any(1)
+                     & live).to(torch.float32))
+    return outs
+
+
+def kernels_small_pulse_stats():
+    """K4 (grid and flat list, with and without the mask) and B10 on crafted
+    runs, bit for bit against the plain versions: every length class and its
+    boundaries (0, 1 and 2 samples, 32 / 33, 128 / 129, the select block's
+    stretch and one past it, long runs whose middle 12-bit bin fits or
+    overflows shared memory), constant runs and ties across the middle,
+    +-0.0, subnormals, +-inf and NaNs of both signs, runs cut at t_len, and
+    windows up to longer than T.  Where NaNs reach the middle ranks of a run
+    the plain version's +inf padding sorts below them (ROADMAP C); every
+    slot is held to ``stats_nan_high``, and to the plain version wherever
+    the two agree."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.cuda import pulse_stats_kernel as psk
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(77)
+    m, t_arr, t_len, p_slots = 6, 40_000, 39_990, 64
+    bits = {"nan": 0x7fc00000, "-nan": 0xffc00000, "nan2": 0x7f800001,
+            "-nan2": 0xff812345}
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45,
+                         1.2e-39, -3.4e-40] + [np.uint32(b).view(np.float32)
+                                               for b in bits.values()],
+                        dtype=np.float32)
+
+    def stream(seed):
+        g = np.random.default_rng(seed)
+        x = np.empty((m, t_arr), np.float32)
+        x[0] = g.standard_normal(t_arr)
+        sprinkle = g.random(t_arr) < 0.05
+        x[0][sprinkle] = g.choice(specials, int(sprinkle.sum()))
+        x[1] = np.round(g.standard_normal(t_arr) * 8) / 8      # ties
+        x[2] = 0.5                                              # constant
+        x[2, 20_000:] = g.choice(np.array([0.0, -0.0], np.float32),
+                                 t_arr - 20_000)
+        x[3] = 0.5 + 1e-4 * g.standard_normal(t_arr)           # one bin
+        x[4] = g.standard_normal(t_arr)
+        heavy = g.random(t_arr) < 0.6                           # NaN-heavy
+        x[4][heavy] = g.choice(specials[-4:], int(heavy.sum()))
+        x[5] = g.choice(specials[:8], t_arr)                    # zeros, inf,
+        return x                                                # subnormals
+
+    mag = torch.as_tensor(stream(1), device=dev)
+    dph = torch.as_tensor(stream(2), device=dev)
+    sat = torch.as_tensor((rng.random((m, t_arr)) < 0.01).astype(np.float32),
+                          device=dev)
+    lengths = [0, 1, 2, 3, 31, 32, 33, 34, 127, 128, 129, 130, 1000,
+               psk.BLOCK_KEYS - 1, psk.BLOCK_KEYS, psk.BLOCK_KEYS + 1,
+               psk.BLOCK_KEYS + 2, 20_000, 33_000]
+    toa = np.full((m, p_slots), t_len, np.int32)
+    te = np.full((m, p_slots), t_len, np.int32)
+    for c in range(m):
+        for j, n in enumerate(lengths):
+            toa[c, j] = rng.integers(0, t_len - n)
+            te[c, j] = toa[c, j] + n - 1
+        tail = len(lengths)
+        toa[c, tail:tail + 4] = [t_len - 50, t_len - 1, t_len - 3, -1]
+        te[c, tail:tail + 4] = [t_len + 449, t_len + 5, t_arr + 100, 10]
+        toa[c, tail + 4] = t_len                       # dead: at t_len
+        for j in range(tail + 5, tail + 25):           # random, any class
+            n = int(rng.choice([2, 5, 17, 40, 100, 140, 600, 3000]))
+            toa[c, j] = rng.integers(0, t_len - 1)
+            te[c, j] = toa[c, j] + n - 1
+    toa, te = (torch.as_tensor(x, device=dev) for x in (toa, te))
+    rows = torch.arange(m, device=dev).repeat_interleave(p_slots)
+    perm = torch.randperm(m * p_slots, device=dev,
+                          generator=torch.Generator(dev).manual_seed(3))
+    chan = rows[perm].to(torch.int32)
+    toa_f, te_f = toa.reshape(-1)[perm], te.reshape(-1)[perm]
+
+    def elementwise_same(a, b):
+        return (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+    out = {"slots": m * p_slots, "windows": [], "nan_middle_slots": 0}
+    for window in (128, 1024, psk.BLOCK_KEYS, 65536):
+        ref = stats_nan_high(mag, dph, sat, toa, te, rows, window, t_len)
+        plain = k.pulse_stats_plain(mag, dph, toa, te, window, t_len, sat)
+        got = k.pulse_stats(mag, dph, toa, te, window, t_len, sat)
+        got2 = k.pulse_stats(mag, dph, toa, te, window, t_len)
+        dense = k.pulse_stats_dense(mag, dph, sat, toa_f, te_f, chan, window,
+                                    t_len)
+        dense2 = k.pulse_stats_dense(mag, dph, None, toa_f, te_f, chan,
+                                     window, t_len)
+        forms = [("K4", got), ("K4 no mask", got2),
+                 ("K4 dense", [x[torch.argsort(perm)].reshape(m, p_slots)
+                               for x in dense]),
+                 ("K4 dense no mask", [x[torch.argsort(perm)].reshape(
+                     m, p_slots) for x in dense2])]
+        if psk.batched_tiles(8, window, m * p_slots) > 1:
+            forms.append(("B10", k.pulse_stats(mag, dph, toa, te, window,
+                                               t_len, sat, batch_tiles=8)))
+            forms.append(("B10 dense", [
+                x[torch.argsort(perm)].reshape(m, p_slots)
+                for x in k.pulse_stats_dense(mag, dph, sat, toa_f, te_f, chan,
+                                             window, t_len, batch_tiles=8)]))
+        torch.cuda.synchronize()
+        agree = [elementwise_same(p.reshape(-1), r) for p, r in
+                 zip(plain, ref)]
+        for name, outs in forms:
+            for i, (g, r, p, ag) in enumerate(zip(outs, ref, plain, agree)):
+                g = g.reshape(-1)
+                bad = torch.nonzero(~elementwise_same(g, r))[:4, 0].tolist()
+                check(not bad,
+                      f"{name} window={window} output {i}: differs from a "
+                      f"sort with NaNs high at (slot, toa, te, got, want) "
+                      f"{[(j, int(toa.reshape(-1)[j]), int(te.reshape(-1)[j]), float(g[j]), float(r[j])) for j in bad]}")
+                check(bool(elementwise_same(g, p.reshape(-1))[ag].all()),
+                      f"{name} window={window} output {i}: differs from the "
+                      f"plain version")
+            check(all(same(g, h) for g, h in zip(outs, got)),
+                  f"{name} window={window}: differs from K4")
+        out["windows"].append(window)
+        out["nan_middle_slots"] += int(sum((~a).sum() for a in agree))
+    check(out["nan_middle_slots"] > 0,
+          "K4 crafted runs: no run has NaNs in its middle ranks")
+    # B10's list of live tiles, built on the card, against its plain version
+    lists = 0
+    for seed in range(3):
+        g = np.random.default_rng(seed)
+        n_s = 128 * 11 + 37
+        tl = np.full(n_s, 1000, np.int32)
+        tl[5] = -3
+        for t in np.flatnonzero(g.random(12) < 0.4):
+            tl[128 * t + g.integers(0, min(128, n_s - 128 * t))] = \
+                g.integers(0, 1000)
+        for nt in (2, 3, 8):
+            ids, n_l, n_b = psk._live_tiles(torch.as_tensor(tl, device=dev),
+                                            1000, nt)
+            ids_c, n_c, n_bc = psk._live_tiles(torch.as_tensor(tl), 1000, nt)
+            n_l = int(n_l)
+            check(n_l == int(n_c) and n_b == n_bc
+                  and ids.numel() == ids_c.numel()
+                  and torch.equal(ids[:n_l].cpu(), ids_c[:n_l])
+                  and bool((ids[n_l:] == -1).all()),
+                  f"B10 live tiles seed={seed} nt={nt}: the card's list "
+                  f"differs from the plain one")
+            lists += 1
+    out["live_tile_lists"] = lists
+    return out
 
 
 def _nf_fits(mag, t_len: int) -> int:
@@ -1027,9 +1282,15 @@ def kernels_main_shape(xq, pipe):
                                 for t_s, e_s, w in tiers], reps=3, warmup=1)
     slots = {"tiny": int(tiny.sum()), "short": int(short.sum()),
              "long": int(long_.sum())}
+    grid_rows = torch.arange(m, device=toa.device).repeat_interleave(
+        toa.shape[1])
+    sort_ms = window_sort_ms(mag, dph, [(t_s, e_s, grid_rows, w)
+                                        for t_s, e_s, w in tiers], t_len)
     row("pulse_stats", "pulse_stats.cu", "pulse_stats_kernel.py:771",
-        err, True, k4_ms, plain_ms, None, n_bytes=live_bytes, n_flop=0,
-        slots=slots)
+        err, True, k4_ms, plain_ms, sort_ms, n_bytes=live_bytes, n_flop=0,
+        slots=slots, device_ms=stats_device_ms("pulse_stats", lambda: [
+            k.pulse_stats(mag, dph, t_s, e_s, w, t_len)
+            for t_s, e_s, w in tiers]))
 
     # B10: the same two tier calls with batch_tiles = 8, as the cm2 tail
     # makes them with _STATS_BATCH = 8: 8 tiles a batch at window 128, 5 at
@@ -1051,11 +1312,15 @@ def kernels_main_shape(xq, pipe):
         time_ms(lambda: [k.pulse_stats(mag, dph, t_s, e_s, w, t_len,
                                        batch_tiles=8)
                          for t_s, e_s, w in tiers]),
-        plain_ms, None, n_bytes=live_bytes, n_flop=0, equals_k4=True,
+        plain_ms, sort_ms, n_bytes=live_bytes, n_flop=0, equals_k4=True,
+        device_ms=stats_device_ms("pulse_stats_batched", lambda: [
+            k.pulse_stats(mag, dph, t_s, e_s, w, t_len, batch_tiles=8)
+            for t_s, e_s, w in tiers]),
         k4_ms=k4_ms, tiles_a_batch=nts, live_tiles=live_tiles,
         tiles=[-(-t_s.numel() // psk.TILE) for t_s, _, _ in tiers],
         slots=slots)
-    del got, mag, dph, satcs, packed
+    # mag and dph stay bound: the statistics rows' calls read them
+    del got, satcs, packed
     kernels_block_shape(xq, pipe, row)
     return rows
 
@@ -1153,14 +1418,18 @@ def kernels_block_shape(xq, pipe, row):
     b = k.pulse_stats_plain(mag, dph, *grid, w, t_len, sat)
     check(all(same(x, y) for x, y in zip(a, b)),
           "K4 sat_cm block shape: differs from plain")
+    grid_rows = chan.reshape(toa.shape)
     row("pulse_stats_sat", "pulse_stats.cu", "pulse_stats_kernel.py:771",
         max(max_abs(x, y) for x, y in zip(a, b)), True,
         time_ms(lambda: k.pulse_stats(mag, dph, *grid, w, t_len, sat)),
         time_ms(lambda: k.pulse_stats_plain(mag, dph, *grid, w, t_len, sat),
                 reps=3, warmup=1),
-        None, n_bytes=stats_bytes(*grid, w, 8 + 12), n_flop=0,
+        window_sort_ms(mag, dph, [(*grid, grid_rows, w)], t_len),
+        n_bytes=stats_bytes(*grid, w, 8 + 12), n_flop=0,
         shape=f"M={m} T={t_len}", flagged=int(a[2].sum()),
-        live_slots=int((grid[0] < t_len).sum()))
+        live_slots=int((grid[0] < t_len).sum()),
+        device_ms=stats_device_ms("pulse_stats_sat", lambda: k.pulse_stats(mag, dph, *grid, w, t_len,
+                                                  sat)))
     del a, b
 
     tiers = [(torch.where(s_, toa, sentinel).reshape(-1),
@@ -1185,9 +1454,14 @@ def kernels_block_shape(xq, pipe, row):
         for t_s, e_s, win in tiers], reps=3, warmup=1)
     slots = {"tiny": int(tiny.sum()), "short": int(short.sum()),
              "long": int(long_.sum())}
+    sort_ms = window_sort_ms(mag, dph, [(t_s, e_s, chan, win)
+                                        for t_s, e_s, win in tiers], t_len)
     row("pulse_stats_dense", "pulse_stats.cu", "pulse_stats_kernel.py:771",
-        err, True, k4_ms, plain_ms, None, n_bytes=n_bytes, n_flop=0,
-        shape=f"M={m} T={t_len}", flagged=flagged, slots=slots)
+        err, True, k4_ms, plain_ms, sort_ms, n_bytes=n_bytes, n_flop=0,
+        shape=f"M={m} T={t_len}", flagged=flagged, slots=slots,
+        device_ms=stats_device_ms("pulse_stats_dense", lambda: [
+            k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan, win, t_len)
+            for t_s, e_s, win in tiers]))
 
     # B10 on the flat lists with the mask, as the streamed block's tail
     # calls it with _STATS_BATCH = 8: bit for bit K4's and the plain's
@@ -1206,8 +1480,11 @@ def kernels_block_shape(xq, pipe, row):
         time_ms(lambda: [k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan,
                                              win, t_len, batch_tiles=8)
                          for t_s, e_s, win in tiers]),
-        plain_ms, None, n_bytes=n_bytes, n_flop=0, shape=f"M={m} T={t_len}",
-        equals_k4=True, k4_ms=k4_ms,
+        plain_ms, sort_ms, n_bytes=n_bytes, n_flop=0,
+        shape=f"M={m} T={t_len}", equals_k4=True, k4_ms=k4_ms,
+        device_ms=stats_device_ms("pulse_stats_dense_batched", lambda: [
+            k.pulse_stats_dense(mag, dph, sat, t_s, e_s, chan, win, t_len,
+                                batch_tiles=8) for t_s, e_s, win in tiers]),
         tiles_a_batch=[psk.batched_tiles(8, win, t_s.numel())
                        for t_s, _, win in tiers], slots=slots)
 
@@ -1272,7 +1549,7 @@ def kernels_long_window(rows):
     chan = torch.zeros_like(toa_f)
     live = toa_f < n
     n_mag = torch.minimum(torch.clamp(te_f - toa_f + 1, max=w), n - toa_f)
-    n_long = int((live & (n_mag > psk.SMEM_KEYS_PER_WARP)).sum())
+    n_long = int((live & (n_mag > psk.BLOCK_KEYS)).sum())
     check(n_long == 2 and int((live & (n_mag > 1000)).sum()) == 2,
           f"K4 long window: {n_long} slots past the stretch")
 
@@ -1303,9 +1580,10 @@ def kernels_long_window(rows):
         time_ms(lambda: k.pulse_stats_dense_plain(
             mag_cm, dph_cm, sat_cm, toa_f, te_f, chan, w, n), reps=3,
             warmup=1),
-        None, n_bytes=n_bytes, n_flop=0, shape=f"M=1 T={n}", window=w,
+        window_sort_ms(mag_cm, dph_cm, [(toa_f, te_f, chan, w)], n),
+        n_bytes=n_bytes, n_flop=0, shape=f"M=1 T={n}", window=w,
         pulses=real, slots_past_shared_memory=n_long,
-        stretch=psk.SMEM_KEYS_PER_WARP,
+        stretch=psk.BLOCK_KEYS, device_ms=stats_device_ms("pulse_stats_long_window", call),
         ms_without_the_long_slots=time_ms(lambda: k.pulse_stats_dense(
             mag_cm, dph_cm, sat_cm, toa_f[:-2].contiguous(),
             te_f[:-2].contiguous(), chan[:-2].contiguous(), w, n))))
@@ -2101,8 +2379,8 @@ def phase_predict():
               f"predict: no event within 0.02 s of 0.1 s: {pred.events}")
         widths = np.concatenate([p["pw"] for _, p, _, _ in records])
         check(widths.size > 0 and float(widths.max()) * EVENT_FS + 1
-              <= psk.SMEM_KEYS_PER_WARP,
-              "predict: a pulse longer than a warp's shared memory")
+              <= psk.BLOCK_KEYS,
+              "predict: a pulse longer than a select block's shared memory")
 
         # the CLI in a process of its own: the same lines
         t0 = time.perf_counter()
@@ -2207,38 +2485,21 @@ def phase_track():
 def profile_step(label: str, fn, steps: int = 5) -> None:
     """Device time by kernel name over a few calls of ``fn``, from
     ``torch.profiler``, as one ``profile`` line."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        is_kernel = getattr(ev, "device_type", None) is not None and \
-            "cuda" in str(ev.device_type).lower()
-        if is_kernel and dev_us > 0:
-            rows.append({"kernel": ev.key[:80], "calls_per_step":
-                         ev.count / steps,
-                         "ms_per_step": dev_us / 1e3 / steps})
-    rows.sort(key=lambda r: -r["ms_per_step"])
+    rows = device_times(fn, steps)
     busy = sum(r["ms_per_step"] for r in rows)
     emit("profile", capture=label, steps=steps,
          device_busy_ms_per_step=busy, kernels=rows[:14],
-         rest_ms_per_step=sum(r["ms_per_step"] for r in rows[14:]))
+         rest_ms_per_step=sum(r["ms_per_step"] for r in rows[14:]),
+         pulse_stats_ms_per_step=sum(r["ms_per_step"] for r in rows
+                                     if "pulse_stats" in r["kernel"]))
 
 
-def phase_profile(pipe, caps):
+def phase_profile(pipe, caps, rows):
     """Only with ``--profile``: device time by kernel name over a few steps
     of the main path on both captures, of the flat and cm routes and the
-    complex form on the dense one, and of the wideband step."""
+    complex form on the dense one, of the wideband step and of one
+    ``predict`` dwell's step; then each statistics row's call alone, its
+    kernels' time as the row's ``profile_ms``."""
     import torch
 
     from sdr_channelizer_tpu_torch.config import PdwConfig
@@ -2266,6 +2527,25 @@ def phase_profile(pipe, caps):
                         device=DEVICE)
     profile_step("wideband, 16,000,000 samples", lambda: wide.forward(x),
                  steps=3)
+    del x
+    # one predict dwell: the scanning beam at its peak, predict's window
+    from sdr_channelizer_tpu_torch.capture import DeviceDwellEmitter
+
+    (xr, xi), _ = DeviceDwellEmitter(sample_rate_sps=EVENT_FS, **SCAN,
+                                     device=DEVICE).receive(
+        int(round(DWELL_SEC * EVENT_FS)), start_time=0.06)
+    event = WidebandPdwPipeline(PdwConfig.event(
+        max_pulses=512, max_pulse_samples=PREDICT_WINDOW), DEVICE)
+    xc = torch.complex(xr, xi)
+    profile_step("predict dwell, 4,480,000 samples",
+                 lambda: event.forward(xc))
+    # each statistics row's call alone: its kernels' device time, last, as
+    # many short traces in a row may drop events from later ones
+    for r in rows:
+        if r["name"] in STATS_CALLS:
+            r["profile_ms"] = sum(
+                t["ms_per_step"] for t in device_times(STATS_CALLS[r["name"]], 5)
+                if "pulse_stats" in t["kernel"] or "live_tiles" in t["kernel"])
 
 
 def phase_profile_streaming(pipe, caps):
@@ -2495,7 +2775,9 @@ def main() -> int:
             pdw_cfg=PdwConfig.channelized(max_pulses=512,
                                           max_pulse_samples=1024))
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-        small = (kernels_small() + kernels_small_latch_nf()
+        small = (kernels_small() + [{"case": "K4 / B10 crafted runs",
+                                     **kernels_small_pulse_stats()}]
+                 + kernels_small_latch_nf()
                  + kernels_small_flip_flat_complex())
         n = M_MAIN * FRAMES_MAIN
         caps = {"sparse": quantize(make_capture(n, M_MAIN, sparse=True)),
@@ -2519,7 +2801,7 @@ def main() -> int:
         launches.update(phase_predict())
         phase_track()
         if "--profile" in sys.argv[1:]:
-            phase_profile(pipe, caps)
+            phase_profile(pipe, caps, rows)
             phase_profile_streaming(pipe, caps)
         phase_cli()
     except SmokeFailure as e:

@@ -1,8 +1,10 @@
 // Helpers shared by the hand-written kernels: order-preserving u32 keys of
-// IEEE-754 floats (the total order a sort gives, NaNs high) and warp scans.
+// IEEE-754 floats (`key_of`: the total order a sort gives, NaNs high) and
+// warp scans.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace sdr {
@@ -12,6 +14,11 @@ constexpr unsigned kFullMask = 0xffffffffu;
 __device__ __forceinline__ uint32_t key_from_f32(float x) {
   uint32_t u = __float_as_uint(x);
   return (u >> 31) ? ~u : (u | 0x80000000u);
+}
+
+// The key of x in a sort's order: every NaN, whatever its sign, above +inf.
+__device__ __forceinline__ uint32_t key_of(float x) {
+  return isnan(x) ? 0xffffffffu : key_from_f32(x);
 }
 
 __device__ __forceinline__ float f32_from_key(uint32_t k) {

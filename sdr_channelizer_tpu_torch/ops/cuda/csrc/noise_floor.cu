@@ -106,11 +106,6 @@ __host__ __device__ constexpr uint32_t known_mask(int level) {
                          : level == 2 ? 0xfffff000u : 0xffffffffu;
 }
 
-// the sort's order: every NaN above +inf
-__device__ __forceinline__ uint32_t key_of(float x) {
-  return isnan(x) ? 0xffffffffu : sdr::key_from_f32(x);
-}
-
 // Up to kPerThread 32-bit words of a chunk of `cnt` items as they lie
 // (float bits, or keys); bit j of the result marks word j as present.
 // Thread tid owns items 4 * (tid + i * kThreads) + e, so that the 16-byte
@@ -301,7 +296,7 @@ nf_sample(const float* __restrict__ mag, long long row_stride, int t_len,
   }
 #pragma unroll
   for (int e = 0; e < kEach; ++e)
-    if (tid + e * kThreads < n) atomicAdd(&s_hist[key_of(v[e]) >> 20], 1);
+    if (tid + e * kThreads < n) atomicAdd(&s_hist[sdr::key_of(v[e]) >> 20], 1);
   __syncthreads();
   const int k_lo = (t_len - 1) / 2, k_hi = t_len / 2;
   const int margin = whole ? 0 : (int)(6.0f * sqrtf(0.25f * n)) + 8;
@@ -393,7 +388,7 @@ nf_pass(const float* __restrict__ mag, long long row_stride, int t_len,
     uint32_t k[kPerThread];
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j)
-      k[j] = from_buf ? cur[j] : key_of(__uint_as_float(cur[j]));
+      k[j] = from_buf ? cur[j] : sdr::key_of(__uint_as_float(cur[j]));
     uint32_t take = 0;  // keys that carry lo's bits
     uint32_t keep = 0;  // keys for the buffer
 #pragma unroll

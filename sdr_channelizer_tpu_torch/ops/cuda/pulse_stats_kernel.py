@@ -7,13 +7,20 @@ package.  Both launch the CUDA selection (``csrc/pulse_stats.cu``) for CUDA
 tensors, or raise; for CPU tensors they take ``pulse_stats_plain`` /
 ``pulse_stats_dense_plain``, a gather of the windows and a sort.
 
+The selection is sized to each pulse: a run of up to ``SHORT_KEYS``
+samples is sorted by a warp (up to four short runs at once) with its keys
+in registers, a longer one is selected by a block of the select kernel,
+from shared memory where the run fits ``BLOCK_KEYS`` keys, else from two
+reads of the run.  Dead slots get no warp: the chunk kernel writes them 0
+while it sorts the live ones by length, on the device, with no host sync.
+Any window is taken.
+
 ``batch_tiles`` chooses the kernel as the JAX package does
 (:func:`batched_tiles`): where it gives more than one tile of 128 slots a
-batch, the batched kernel B10 runs over the compacted list of live tiles,
-else the per-slot kernel K4.  The two give the same bits, and the plain
-versions take ``batch_tiles`` and ignore it.  Any window is taken: a pulse
-longer than a warp's stretch of shared memory (``SMEM_KEYS_PER_WARP``
-samples) is selected from device memory.
+batch, B10 runs over the list of live tiles compacted on the device
+(:func:`_live_tiles`), its blocks on the live tiles only, else K4 with its
+blocks on every chunk of slots.  The two give the same bits, and the plain
+versions take ``batch_tiles`` and ignore it.
 
 All give, for a dead slot (``toa`` outside ``[0, t_len)``), 0 in every
 output, and NaN for a live slot whose range is empty (the phase
@@ -36,13 +43,17 @@ launches = 0                # times pulse_stats launched K4
 launches_dense = 0          # times pulse_stats_dense launched K4
 launches_batched = 0        # times pulse_stats launched B10
 launches_dense_batched = 0  # times pulse_stats_dense launched B10
-# launches of either kernel whose window exceeds a warp's stretch of shared
-# memory (its pulses longer than the stretch are selected from device memory)
+# launches of either kernel whose window exceeds a block's stretch of shared
+# memory (its pulses longer than the stretch are read twice)
 launches_long_window = 0
 
-TILE = 128                 # slots a tile, as the JAX kernel's
-SMEM_KEYS_PER_WARP = 4096  # a warp's stretch of shared memory, in keys
-_BLOCK_KEYS = 16384        # keys a block holds: 64 KB of shared memory
+TILE = 128          # slots a tile, as the JAX kernel's
+SHORT_KEYS = 128    # runs up to this long: a warp, keys in registers
+BLOCK_KEYS = 8192   # a select block's stretch of shared memory, in keys
+# the select kernel's persistent grid: blocks a multiprocessor, as many as
+# stay resident (512 threads, 40 registers and 48 KB of shared memory each)
+SELECT_BLOCKS_PER_SM = 3
+_sm_count = {}
 
 
 def batched_tiles(batch_tiles: int, window: int, n_slots: int) -> int:
@@ -168,27 +179,43 @@ def _library():
     lib = _build.load("pulse_stats")
     if not getattr(lib, "_sdr_typed", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        common = [vp] * 9 + [cll, ci, ci, ci, ci, ci, ci]
-        lib.sdr_pulse_stats.argtypes = common + [vp]
+        lib.sdr_pulse_stats.argtypes = ([vp] * 9 + [cll, ci, ci, ci, ci]
+                                        + [vp, vp, cll, ci, vp, vp])
         lib.sdr_pulse_stats.restype = ci
-        lib.sdr_pulse_stats_batched.argtypes = common + [vp, vp, ci, ci, vp]
-        lib.sdr_pulse_stats_batched.restype = ci
+        lib.sdr_live_tiles.argtypes = [vp, ci, ci, ci, vp, vp, vp]
+        lib.sdr_live_tiles.restype = ci
         lib._sdr_typed = True
     return lib
 
 
 def _live_tiles(toa: torch.Tensor, t_len: int, nt: int):
-    """The batched kernel's list of live tiles, on the device: ``(tile_ids,
-    n_live, n_batches)``, the live tile indices in order scattered to their
-    rank (a cumsum), -1 past them, and the live count as a one-element
-    tensor; no host sync."""
+    """B10's list of live tiles, on the device: ``(tile_ids, n_live,
+    n_batches)``, the live tile indices in order, -1 past them (``n_batches
+    * nt + 1`` places), and the live count as a one-element tensor; no host
+    sync.  The list is padded to ``n_batches`` batches of ``nt`` tiles, as
+    the JAX package batches them; on the card a block of B10 takes a
+    quarter of one entry's tile.  A CUDA ``toa`` gets the list from the
+    kernel that B10's launch runs first (``sdr_live_tiles``, one block), a
+    CPU one from its plain version, a cumsum rank and a scatter."""
     n_slots = toa.numel()
     n_tiles = (n_slots + TILE - 1) // TILE
+    n_batches = (n_tiles + nt - 1) // nt
+    if toa.is_cuda:
+        out = torch.empty(n_batches * nt + 2, dtype=torch.int32,
+                          device=toa.device)
+        if n_slots:
+            code = _library().sdr_live_tiles(
+                toa.data_ptr(), n_slots, t_len, n_batches * nt + 1,
+                out.data_ptr(), out[-1:].data_ptr(),
+                torch.cuda.current_stream(toa.device).cuda_stream)
+            _build.check_launch(code, "sdr_live_tiles")
+        else:
+            out.fill_(-1)[-1] = 0
+        return out[:-1], out[-1:], n_batches
     live = (toa >= 0) & (toa < t_len)
     if n_tiles * TILE != n_slots:
         live = torch.cat([live, live.new_zeros(n_tiles * TILE - n_slots)])
     live = live.view(n_tiles, TILE).any(dim=1)
-    n_batches = (n_tiles + nt - 1) // nt
     rank = torch.cumsum(live.to(torch.int32), 0) - 1
     dst = torch.where(live, rank, n_batches * nt).to(torch.int64)
     tile_ids = torch.full((n_batches * nt + 1,), -1, dtype=torch.int32,
@@ -196,6 +223,21 @@ def _live_tiles(toa: torch.Tensor, t_len: int, nt: int):
     tile_ids.scatter_(0, dst, torch.arange(n_tiles, dtype=torch.int32,
                                            device=toa.device))
     return tile_ids, live.sum(dtype=torch.int32).reshape(1), n_batches
+
+
+def _select_grid(dev: torch.device, window: int, t_len: int, n_slots: int):
+    """The select kernel's persistent grid and each block's scratch in
+    keys: ``SELECT_BLOCKS_PER_SM`` blocks a multiprocessor; one where a run
+    can outgrow the block's stretch (``window > BLOCK_KEYS``), each then
+    with scratch for a whole run.  Never more blocks than two tasks a
+    slot."""
+    sms = _sm_count.get(dev.index)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _sm_count[dev.index] = sms
+    if window > BLOCK_KEYS:
+        return min(2 * n_slots, sms), min(window, t_len)
+    return min(2 * n_slots, SELECT_BLOCKS_PER_SM * sms), 0
 
 
 def _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, p_slots, window, t_len,
@@ -215,38 +257,38 @@ def _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, p_slots, window, t_len,
         raise ValueError("toa, te and chan must be contiguous")
     dev = mag_cm.device
     n_slots = toa.numel()
+    n_out = 2 if sat_cm is None else 3
     nt = batched_tiles(batch_tiles, window, n_slots)
-    # B10 visits live tiles only: the rest of its outputs stay zero
-    alloc = torch.zeros if nt > 1 else torch.empty
-    outs = tuple(alloc(toa.shape, dtype=torch.float32, device=dev)
-                 for _ in range(2 if sat_cm is None else 3))
+    # one allocation: the outputs end to end, then (int32) B10's list of
+    # live tiles, the count and list of the runs longer than SHORT_KEYS and
+    # the select blocks' scratch
+    n_list = (n_slots + TILE - 1) // TILE + 1 if nt > 1 else 0
+    n_big = n_slots + 1 if window > SHORT_KEYS else 0
+    blocks, stride = (_select_grid(dev, window, t_len, n_slots) if n_big
+                      else (0, 0))
+    buf = torch.empty(n_out * n_slots + n_list + n_big + blocks * stride,
+                      dtype=torch.float32, device=dev)
+    outs = buf[:n_out * n_slots].view((n_out,) + tuple(toa.shape)).unbind(0)
     if n_slots == 0:
         return outs
-    stretch = min(window, SMEM_KEYS_PER_WARP)
-    # K4: 8 warps a block, a slot each; B10: a block is a whole batch of up
-    # to 8 * 128 slots, so it takes as many warps as its shared memory and
-    # 1024 threads allow (40 registers a thread)
-    warps = max(1, min(32 if nt > 1 else 8, _BLOCK_KEYS // stretch))
-    lib = _library()
+    base = buf.data_ptr()
+    tiles = base + 4 * n_out * n_slots
+    big = tiles + 4 * n_list
     args = (mag_cm.data_ptr(), dph_cm.data_ptr(),
             None if sat_cm is None else sat_cm.data_ptr(), toa.data_ptr(),
             te.data_ptr(), None if chan is None else chan.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr(),
-            None if sat_cm is None else outs[2].data_ptr(),
-            mag_cm.stride(0), n_slots, p_slots, window, t_len, stretch, warps)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if nt > 1:
-            tile_ids, n_live, n_batches = _live_tiles(toa.reshape(-1), t_len,
-                                                      nt)
-            code = lib.sdr_pulse_stats_batched(
-                *args, tile_ids.data_ptr(), n_live.data_ptr(), nt, n_batches,
-                stream)
-            what = "sdr_pulse_stats_batched"
-        else:
-            code = lib.sdr_pulse_stats(*args, stream)
-            what = "sdr_pulse_stats"
-    _build.check_launch(code, what)
+            base, base + 4 * n_slots,
+            None if sat_cm is None else base + 8 * n_slots, mag_cm.stride(0),
+            n_slots, p_slots, window, t_len, big if n_big else None,
+            big + 4 * n_big if stride else None, stride, blocks,
+            tiles if n_list else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        code = _library().sdr_pulse_stats(*args)
+    else:
+        with torch.cuda.device(dev):
+            code = _library().sdr_pulse_stats(*args)
+    _build.check_launch(code, "sdr_pulse_stats")
     if nt > 1 and chan is None:
         launches_batched += 1
     elif nt > 1:
@@ -255,7 +297,7 @@ def _launch(mag_cm, dph_cm, sat_cm, toa, te, chan, p_slots, window, t_len,
         launches += 1
     else:
         launches_dense += 1
-    if window > stretch:
+    if window > BLOCK_KEYS:
         launches_long_window += 1
     return outs
 

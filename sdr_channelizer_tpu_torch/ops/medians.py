@@ -37,6 +37,9 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.T
     mask is empty."""
     mask = mask.expand(x.shape)
     dim = dim % x.ndim
+    # every NaN made +NaN: torch.sort on a CUDA tensor puts a NaN with its
+    # sign bit set below -inf where it sorts by radix (long rows)
+    x = torch.where(torch.isnan(x), torch.full((), float("nan"), dtype=x.dtype, device=x.device), x)
     xs = torch.where(mask, x, torch.full((), float("inf"), dtype=x.dtype, device=x.device))
     xs, _ = torch.sort(xs, dim=dim)
     n = mask.sum(dim=dim, keepdim=True)
