@@ -12,9 +12,10 @@ each -> blocks of 65536 frames through the channelizer's cm form, the
 time-major latch and the statistics with the saturation mask, with
 checkpoint and resume) and holds it against single-shot extraction of the
 same samples; then the wideband path (``WidebandPdwPipeline`` on 16,000,000
-complex samples through the time-major latch, the flip kernel and the
-statistics at one channel, and 33,554,432 samples block by block against the
-oracle extractor), the single-shot routes ``"flat"`` and ``"cm"`` against
+complex samples through the fused one-channel streams, the time-major latch
+and the statistics at one channel, and 33,554,432 samples block by block,
+the flip kernel a block, against the oracle extractor), the single-shot
+routes ``"flat"`` and ``"cm"`` against
 ``"cm2"``, float payloads and the complex-free step; then the batched
 statistics kernel on the main path and route ``"cm"`` (``stats_batch``:
 PDWs bit for bit those of the per-slot kernel), event prediction (eight 80
@@ -31,8 +32,11 @@ overflow its buffer, a sample that misses the median, NaNs, subnormals),
 the pulse statistics on crafted runs (every length class and its
 boundaries, constant runs and ties, +-0, +-inf, subnormals and NaNs of both
 signs, runs cut at T and windows past it; B10's list of live tiles built on
-the card) and the channelizer body with T on tile boundaries, where the
-look-ahead frame is taken.  Every route, wideband extraction and ``predict`` take their
+the card), the flip in both load variants (M % 4 == 0 or not, views off a
+16-byte boundary) and its fused one-channel form on crafted samples (at the
+saturation level, phase steps of +-180 and +-360, +-0, +-inf, NaN) and the
+channelizer body with T on tile boundaries, where the look-ahead frame is
+taken.  Every route, wideband extraction and ``predict`` take their
 noise floor with the select kernel, and its launches are counted on each.
 ``--profile`` adds phases that print the device time of a step by kernel
 name (and the statistics kernels' share of it) and where a streamed
@@ -250,6 +254,28 @@ def kernel_row(name, source, replaces, err, exact, ms, plain_ms, library_ms,
         "library_ms": library_ms, **extra}
 
 
+def flip_library(mag, ph, sat):
+    """The flip as library calls: three ``.T.contiguous()`` and the eager
+    wrapped difference (B8's yardstick)."""
+    import torch
+
+    d = ph[1:] - ph[:-1]
+    d = torch.where(d < -180.0, d + 360.0, d)
+    d = torch.where(d > 180.0, d - 360.0, d)
+    d = torch.cat([d, d.new_zeros((1, ph.shape[1]))])
+    return (mag.T.contiguous(), d.T.contiguous(),
+            sat.to(torch.float32).T.contiguous())
+
+
+def wideband_library(x, level: float):
+    """The one-channel streams as library calls: the eager prep, then
+    ``flip_library`` (the fused form's yardstick)."""
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+
+    mag, ph, sat = pdwmod._prep_streams(x, level)
+    return mag, *flip_library(mag[:, None], ph[:, None], sat[:, None])[1:]
+
+
 def dft_ops(m: int, p: int, t_len: int) -> dict:
     """The channelizer's operations for ``kernel_row``: the FIR on the CUDA
     cores, the DFT as three TF32 products of the split on the tensor cores;
@@ -261,6 +287,18 @@ def dft_ops(m: int, p: int, t_len: int) -> dict:
 
 def n_bytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def off_boundary(t):
+    """A copy of ``t`` that starts one element past a 16-byte boundary:
+    the flip and the fused form take their 4-byte (8-byte pair) loads on
+    it."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def device_times(fn, steps: int) -> list:
@@ -915,38 +953,108 @@ def kernels_small_latch_nf():
 
 
 def kernels_small_flip_flat_complex():
-    """The flip kernel, the flat form and the complex form against their
-    plain versions at small and awkward shapes; the time-major latch at
-    fewer channels than one of its blocks owns."""
+    """The flip kernel (both load variants, views off a 16-byte boundary),
+    its fused one-channel form on crafted samples, the flat form and the
+    complex form against their plain versions at small and awkward shapes;
+    the time-major latch at fewer channels than one of its blocks owns."""
     import torch
 
     from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
     from sdr_channelizer_tpu_torch.io import iqpacket
     from sdr_channelizer_tpu_torch.ops import cuda as k
+    from sdr_channelizer_tpu_torch.ops.cuda import transpose_kernel as tk
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(8)
     cases = []
 
-    # B8: exact, any M from 1 and any T, t_len 1 and 2, both mask dtypes,
-    # an infinite magnitude carried through
+    # B8: exact, any M from 1 and any T (on both sides of its 128-frame
+    # tile and of the one-channel pass's 256-sample warp span), t_len 1 and
+    # 2, both mask dtypes, an infinite magnitude and a NaN phase carried
+    # through.  The kernel takes 16-byte loads on fresh tensors where M % 4
+    # == 0 or M = 1, 4-byte ones where M % 4 != 0 and off a 16-byte boundary
     for t_len, m in ((1, 1), (2, 1), (1, 3), (2, 3), (2500, 1), (4099, 1),
-                     (1003, 3), (777, 56), (2049, 64), (3001, 33), (2049, 2)):
+                     (255, 1), (257, 1), (1003, 3), (777, 56), (2049, 64),
+                     (3001, 33), (2049, 2), (127, 6), (129, 4), (130, 65),
+                     (1, 64), (4097, 560)):
         mag = torch.rand((t_len, m), device=dev, generator=gen)
         mag[t_len // 2, m // 2] = float("inf")
         ph = (torch.rand((t_len, m), device=dev, generator=gen) - 0.5) * 360.0
         ph[t_len // 3] = 180.0   # steps of exactly +-180 and +-360
         ph[t_len // 3 + 1:t_len // 3 + 2] = -180.0
+        ph[(2 * t_len) // 3, m - 1] = float("nan")
         sat_b = torch.rand((t_len, m), device=dev, generator=gen) > 0.9
         for sat in (sat_b, sat_b.to(torch.float32)):
             a = k.cm_streams(mag, ph, sat)
-            b = k.cm_streams_plain(mag, ph, sat)
             check(all(x.shape == (m, t_len) for x in a)
-                  and all(same(x, y) for x, y in zip(a, b)),
+                  and all(same(x, y) for x, y in
+                          zip(a, k.cm_streams_plain(mag, ph, sat))),
                   f"B8 T={t_len} M={m} {sat.dtype}: differs from plain")
             check(bool((a[1][:, -1] == 0).all()),
                   f"B8 T={t_len} M={m}: last dph column not zero")
-        cases.append({"case": f"B8 T={t_len} M={m}", "exact": True})
+        cases.append({"case": f"B8 T={t_len} M={m}", "exact": True,
+                      "loads": "16-byte" if m % 4 == 0 or m == 1
+                      else "4-byte"})
+    # views into a longer buffer, at an element offset of 1 (off a 16-byte
+    # boundary: the 4-byte loads) and of 4 (on one: the 16-byte loads where
+    # M % 4 == 0 or M = 1); the kernel launches (the counter moves) and
+    # gives the plain bits, never the plain version in its place
+    for t_len, m in ((1001, 1), (1001, 3), (1001, 4), (513, 64)):
+        for off in (1, 4):
+            def view(x):
+                return x.reshape(-1)[off:off + t_len * m].view(t_len, m)
+
+            shape = (t_len + off, m)
+            mag = view(torch.rand(shape, device=dev, generator=gen))
+            ph = view((torch.rand(shape, device=dev, generator=gen) - 0.5)
+                      * 360.0)
+            sat_b = view(torch.rand(shape, device=dev, generator=gen) > 0.5)
+            sat_f = view(torch.rand(shape, device=dev, generator=gen) > 0.5
+                         ).float()
+            for sat in (sat_b, view(torch.cat([
+                    sat_f.reshape(-1), sat_f.new_zeros(off * m)]))):
+                before = tk.launches
+                a = k.cm_streams(mag, ph, sat)
+                check(tk.launches == before + 1
+                      and all(same(x, y) for x, y in
+                              zip(a, k.cm_streams_plain(mag, ph, sat))),
+                      f"B8 view +{off} M={m} {sat.dtype}: not the kernel's "
+                      f"plain bits")
+            cases.append({"case": f"B8 view at element {off} T={t_len} "
+                                  f"M={m}", "exact": True, "launched": True})
+
+    # the one-channel streams from the capture: bit for bit the plain chain
+    # (prep_streams, then the flip's plain version) on crafted samples:
+    # exactly at the saturation level and just under it, phase steps of
+    # exactly +-180 and +-360, +-0 in both parts, +-inf and NaN; T of 1, 2,
+    # on both sides of a warp span; as a fresh capture (16-byte loads) and
+    # as a view one sample in (8 bytes off: a pair a load)
+    special = torch.tensor([
+        0.9999, -0.9999, 0.9999j, -0.9999j, 0.99989, 1.0, -1.0, 1.0,
+        complex(-1.0, 0.0), complex(-1.0, -0.0), complex(-1.0, 0.0),
+        complex(0.0, 0.0), complex(-0.0, 0.0), complex(-0.0, -0.0),
+        complex(0.0, -0.0), complex(float("inf"), 0.0),
+        complex(-float("inf"), 1.0), complex(0.0, -float("inf")),
+        complex(float("inf"), float("inf")), complex(float("nan"), 0.0),
+        complex(0.0, float("nan")), 0.5j, -0.5], dtype=torch.complex64,
+        device=dev)
+    for n in (1, 2, 3, 4, 5, 23, 255, 256, 257, 4095, 4096, 4097, 70001):
+        x = torch.randn(n + 1, dtype=torch.complex64, device=dev,
+                        generator=gen) * 0.5
+        idx = torch.randint(0, len(special), (n + 1,), device=dev,
+                            generator=gen)
+        x = torch.where(torch.rand(n + 1, device=dev, generator=gen) < 0.3,
+                        special[idx], x)
+        x[:min(n, len(special))] = special[:min(n, len(special))]
+        for where, xs in (("aligned", x[:n]), ("view", x[1:])):
+            before = tk.launches_wideband
+            got = k.wideband_streams(xs, 0.9999)
+            check(tk.launches_wideband == before + 1
+                  and all(same(a, b) for a, b in
+                          zip(got, k.wideband_streams_plain(xs, 0.9999))),
+                  f"wideband_streams T={n} {where}: differs from plain")
+    cases.append({"case": "wideband_streams crafted samples, T = 1 .. 70001",
+                  "exact": True, "forms": ["aligned", "view"]})
 
     # B7 where a block has absent channels
     for m in (1, 3, 64):
@@ -1146,27 +1254,38 @@ def kernels_flat_complex_main_shape(xq, samples, pipe, rows):
         "bound_ms": 12 * m * t_len / HBM_BYTES_PER_S * 1e3}
     del a, b, lead, trail
 
-    a = k.cm_streams(mag, ph, sat)
-    b = k.cm_streams_plain(mag, ph, sat)
-    check(all(same(x, y) for x, y in zip(a, b)),
-          "B8 main shape: differs from plain")
-
-    def library():
-        d = ph[1:] - ph[:-1]
-        d = torch.where(d < -180.0, d + 360.0, d)
-        d = torch.where(d > 180.0, d - 360.0, d)
-        d = torch.cat([d, d.new_zeros((1, m))])
-        return (mag.T.contiguous(), d.T.contiguous(),
-                sat.to(torch.float32).T.contiguous())
+    # B8 with the bool mask (the row), then with B5's float mask as route
+    # "flat" hands it over; each on the fresh streams (16-byte loads) and on
+    # copies one element off a 16-byte boundary (4-byte loads), bit for bit
+    sat_f = flat[2]
+    variants = {}
+    for name, mask in (("bool", sat), ("float", sat_f)):
+        b = k.cm_streams_plain(mag, ph, mask)
+        for loads, streams in (("16_byte", (mag, ph, mask)),
+                               ("4_byte_off_boundary",
+                                tuple(off_boundary(t)
+                                      for t in (mag, ph, mask)))):
+            a = k.cm_streams(*streams)
+            check(all(same(x, y) for x, y in zip(a, b)),
+                  f"B8 main shape, {name} mask, {loads} loads: differs from "
+                  f"plain")
+            variants[f"{name}_mask_{loads}"] = {
+                "ms": time_ms(lambda: k.cm_streams(*streams)),
+                "device_ms": device_ms(lambda: k.cm_streams(*streams))}
+            del a, streams
+        variants[f"{name}_mask_bound_ms"] = n_bytes_of(
+            mag, ph, mask, *b) / HBM_BYTES_PER_S * 1e3
+        del b
 
     rows.append(kernel_row(
         "cm_streams", "transpose.cu", "transpose_kernel.py:136", 0.0, True,
         time_ms(lambda: k.cm_streams(mag, ph, sat)),
         time_ms(lambda: k.cm_streams_plain(mag, ph, sat), reps=3, warmup=1),
-        time_ms(library, reps=3, warmup=1),
-        n_bytes=n_bytes_of(mag, ph, sat, *a), n_flop=0,
-        shape=f"M={m} T={t_len}"))
-    del a, b, flat, mag, ph, sat
+        time_ms(lambda: flip_library(mag, ph, sat), reps=3, warmup=1),
+        n_bytes=n_bytes_of(mag, ph, sat) + 3 * 4 * m * t_len, n_flop=0,
+        device_ms=device_ms(lambda: k.cm_streams(mag, ph, sat)),
+        shape=f"M={m} T={t_len}", mask="bool", variants=variants))
+    del flat, mag, ph, sat, sat_f
 
     x = torch.as_tensor(iqpacket.to_complex(samples, BIT_WIDTH),
                         device=xq.device)
@@ -1495,7 +1614,9 @@ def kernels_long_window(rows):
     the dwell's pulses, which keep the shared-memory path, plus slots of
     60,000 and 70,000 samples, longer than a warp's stretch of shared
     memory, which take the selection from device memory.  K2 takes the
-    dwell's floor, against its plain version; returns its reading there."""
+    dwell's floor, against its plain version, and the fused one-channel
+    streams are made from the dwell's complex capture, against theirs;
+    returns both readings there."""
     import torch
 
     from sdr_channelizer_tpu_torch.capture import DeviceDwellEmitter
@@ -1517,6 +1638,23 @@ def kernels_long_window(rows):
     nf_plain = k.noise_floor_cm_plain(row1, n)
     check(same(nf, nf_plain) and same(nf.reshape(()), median(mag)),
           f"K2 predict shape: off by {max_abs(nf, nf_plain):.3g}")
+    # the fused one-channel streams on the dwell as predict reads it: a
+    # complex capture
+    xc = torch.complex(xr, xi)
+    level = cfg.saturation_level
+    got = k.wideband_streams(xc, level)
+    check(all(same(a, b) for a, b in
+              zip(got, k.wideband_streams_plain(xc, level))),
+          "wideband_streams predict shape: differs from plain")
+    wide = {"shape": f"T={n}",
+            "ms": time_ms(lambda: k.wideband_streams(xc, level)),
+            "device_ms": device_ms(lambda: k.wideband_streams(xc, level)),
+            "plain_ms": time_ms(lambda: k.wideband_streams_plain(xc, level),
+                                reps=3, warmup=1),
+            "library_ms": time_ms(lambda: wideband_library(xc, level),
+                                  reps=3, warmup=1),
+            "bound_ms": 20 * n / HBM_BYTES_PER_S * 1e3}
+    del got, xc
     dwell = {"shape": f"M=1 T={n}",
              "ms": time_ms(lambda: k.noise_floor_cm(row1, n)),
              "device_ms": device_ms(lambda: k.noise_floor_cm(row1, n)),
@@ -1587,7 +1725,7 @@ def kernels_long_window(rows):
         ms_without_the_long_slots=time_ms(lambda: k.pulse_stats_dense(
             mag_cm, dph_cm, sat_cm, toa_f[:-2].contiguous(),
             te_f[:-2].contiguous(), chan[:-2].contiguous(), w, n))))
-    return dwell
+    return {"noise_floor": dwell, "wideband_streams": wide}
 
 
 def pdws_agree(a: dict, b: dict, where: str) -> None:
@@ -1738,6 +1876,7 @@ STREAM_COUNTS = {
 WIDEBAND_COUNTS = {
     "noise_floor_wideband": "nf_kernel.launches",
     "latch_cumsums_wideband": "latch_kernel.launches_tm",
+    "wideband_streams": "transpose_kernel.launches_wideband",
     "cm_streams_wideband": "transpose_kernel.launches",
     "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
 ROUTE_COUNTS = {
@@ -1922,13 +2061,14 @@ def wideband_capture(n: int, pri_sec: float, start_index: int, seed: int):
                                       np.complex64)
 
 
-def phase_wideband(rows, dwell: dict):
+def phase_wideband(rows, dwells: dict):
     """The wideband path at a real size: 16,000,000 complex samples through
     ``WidebandPdwPipeline.extract`` on the card, against the same call with
-    the plain versions and against the generator's pulses; K2 (the floor),
-    B7 and B8 at one channel against their plain versions, and timed (K2's
-    row carries ``dwell``, its reading at one ``predict`` dwell); then 2^25
-    samples through the blocked route against the oracle extractor."""
+    the plain versions and against the generator's pulses; the fused
+    one-channel streams, K2 (the floor), B7 and B8 at one channel against
+    their plain versions, and timed (the fused form's and K2's rows carry
+    their readings at one ``predict`` dwell, ``dwells``); then 2^25 samples
+    through the blocked route, B8 a block, against the oracle extractor."""
     import torch
 
     from sdr_channelizer_tpu_torch.config import PdwConfig
@@ -1952,8 +2092,10 @@ def phase_wideband(rows, dwell: dict):
     wall = time.perf_counter() - t_start
     launches = read_counts(WIDEBAND_COUNTS)
     peak = torch.cuda.max_memory_allocated()
+    # the single-shot step makes its streams with the fused form: no flip
     for name, count in launches.items():
-        check(count > 0, f"wideband: never launched {name}")
+        check(count == 0 if name == "cm_streams_wideband" else count > 0,
+              f"wideband: launch counts {launches}")
 
     plain = pipe.extract(iq, fs=WIDE_FS, sample_start_time=t0, plain=True)
     pdws_agree(got, plain, "wideband, kernels vs plain")
@@ -1976,7 +2118,32 @@ def phase_wideband(rows, dwell: dict):
     # the step with the capture on the card, and its parts one by one
     x = torch.as_tensor(iq, device=DEVICE)
     step = time_ms(lambda: pipe.forward(x), reps=3, warmup=1)
-    mag, ph, sat = pdwmod._prep_streams(x, cfg.saturation_level)
+    level = cfg.saturation_level
+    mag, ph, sat = pdwmod._prep_streams(x, level)
+    # the fused one-channel streams, on the capture (16-byte loads) and on a
+    # copy one sample off a 16-byte boundary (a pair a load), bit for bit
+    # the plain chain
+    fused = k.wideband_streams_plain(x, level)
+    check(same(fused[0], mag), "wideband_streams: mag is not |x|")
+    x_off = off_boundary(x)
+    for loads, xs in (("16-byte", x), ("pair", x_off)):
+        streams = k.wideband_streams(xs, level)
+        check(all(same(a, b) for a, b in zip(streams, fused)),
+              f"wideband_streams 16M, {loads} loads: differs from plain")
+    del streams
+    rows.append(kernel_row(
+        "wideband_streams", "transpose.cu", "transpose_kernel.py:136", 0.0,
+        True, time_ms(lambda: k.wideband_streams(x, level)),
+        time_ms(lambda: k.wideband_streams_plain(x, level), reps=3,
+                warmup=1),
+        time_ms(lambda: wideband_library(x, level), reps=3, warmup=1),
+        n_bytes=20 * n, n_flop=0, shape=f"T={n}",
+        device_ms=device_ms(lambda: k.wideband_streams(x, level)),
+        scalar_loads_device_ms=device_ms(
+            lambda: k.wideband_streams(x_off, level)),
+        fuses="sdr_channelizer_tpu/dsp/pdw.py:358 (_prep_streams)",
+        predict_shape=dwells["wideband_streams"]))
+    del x_off
     row1 = mag[None]   # the capture's magnitude as K2's one row
     nf = k.noise_floor_cm(row1, n)
     nf_plain = k.noise_floor_cm_plain(row1, n)
@@ -1988,8 +2155,8 @@ def phase_wideband(rows, dwell: dict):
     lead, trail = (t.reshape(1) for t in pdwmod._thresholds(nf, cfg))
     mag2, ph2, sat2 = mag[:, None], ph[:, None], sat[:, None]
     parts = {
-        "prep_streams_ms": time_ms(lambda: pdwmod._prep_streams(
-            x, cfg.saturation_level), reps=3, warmup=1),
+        "wideband_streams_ms": time_ms(lambda: k.wideband_streams(x, level),
+                                       reps=3, warmup=1),
         "noise_floor_ms": time_ms(lambda: k.noise_floor_cm(row1, n), reps=3,
                                   warmup=1),
     }
@@ -2000,7 +2167,7 @@ def phase_wideband(rows, dwell: dict):
         time_ms(lambda: torch.sort(mag), reps=3, warmup=1),
         n_bytes=4 * n + 4, n_flop=0, shape=f"M=1 T={n}",
         device_ms=device_ms(lambda: k.noise_floor_cm(row1, n)),
-        buffer_fits=_nf_fits(row1, n), predict_shape=dwell))
+        buffer_fits=_nf_fits(row1, n), predict_shape=dwells["noise_floor"]))
 
     # B7 at one channel
     a = k.latch_cumsums(mag2, lead, trail)
@@ -2016,30 +2183,26 @@ def phase_wideband(rows, dwell: dict):
         None, n_bytes=n_bytes_of(mag2, a), n_flop=0, shape=f"M=1 T={n}"))
     del a
 
-    # B8 at one channel
+    # B8 at one channel on the whole 16M capture (the blocked path's row
+    # below carries this reading): mag_cm is a view of mag, so the bound
+    # counts the phase and the bool mask read, dph_cm and the float mask
+    # written: 13 bytes a sample
     a = k.cm_streams(mag2, ph2, sat2)
-    b = k.cm_streams_plain(mag2, ph2, sat2)
-    check(all(same(u, v) for u, v in zip(a, b)),
-          "B8 wideband shape: differs from plain")
-
-    def library():
-        d = ph2[1:] - ph2[:-1]
-        d = torch.where(d < -180.0, d + 360.0, d)
-        d = torch.where(d > 180.0, d - 360.0, d)
-        d = torch.cat([d, d.new_zeros((1, 1))])
-        return (mag2.T.contiguous(), d.T.contiguous(),
-                sat2.to(torch.float32).T.contiguous())
-
-    rows.append(kernel_row(
-        "cm_streams_wideband", "transpose.cu", "transpose_kernel.py:136", 0.0,
-        True, time_ms(lambda: k.cm_streams(mag2, ph2, sat2)),
-        time_ms(lambda: k.cm_streams_plain(mag2, ph2, sat2), reps=3, warmup=1),
-        time_ms(library, reps=3, warmup=1),
-        n_bytes=n_bytes_of(mag2, ph2, sat2, *a), n_flop=0,
-        shape=f"M=1 T={n}"))
-    del a, b
+    check(all(same(u, v) for u, v in
+              zip(a, k.cm_streams_plain(mag2, ph2, sat2)))
+          and a[0].data_ptr() == mag2.data_ptr(),
+          "B8 at M = 1 x 16M: differs from plain")
+    b8_whole = {
+        "shape": f"M=1 T={n}",
+        "ms": time_ms(lambda: k.cm_streams(mag2, ph2, sat2)),
+        "device_ms": device_ms(lambda: k.cm_streams(mag2, ph2, sat2)),
+        "plain_ms": time_ms(lambda: k.cm_streams_plain(mag2, ph2, sat2),
+                            reps=3, warmup=1),
+        "bound_ms": n_bytes_of(ph2, sat2, a[1], a[2]) / HBM_BYTES_PER_S * 1e3}
+    del a
     parts["tail_ms"] = time_ms(
-        lambda: pdwmod._extract_wideband_from_streams(mag, ph, sat, cfg, nf),
+        lambda: pdwmod._extract_wideband_from_streams(
+            mag, None, None, cfg, nf, cm_streams=(mag[None], *fused[1:])),
         reps=3, warmup=1)
     out["single_shot"] = {
         "samples": n, "pulses": len(got["toa"]), "generated": len(starts),
@@ -2049,7 +2212,7 @@ def phase_wideband(rows, dwell: dict):
         "extract_s": wall, "step_ms": step,
         "msamples_per_s": n / step / 1e3, "peak_memory_bytes": peak,
         "launches": dict(launches), **parts}
-    del x, mag, ph, sat, mag2, ph2, sat2, iq, plain
+    del x, mag, ph, sat, mag2, ph2, sat2, iq, plain, fused
     torch.cuda.empty_cache()
 
     # 2^25 samples: the blocked route.  One pulse straddles the first block
@@ -2076,6 +2239,7 @@ def phase_wideband(rows, dwell: dict):
     n_blocks = n // block
     check(blocked_launches["latch_cumsums_wideband"] == n_blocks
           and blocked_launches["cm_streams_wideband"] == n_blocks
+          and blocked_launches["wideband_streams"] == 0
           and blocked_launches["noise_floor_wideband"] == 1,
           f"wideband, blocked: launch counts {blocked_launches}")
     check(same(nf.reshape(1), k.noise_floor_cm_plain(x.abs()[None], n)),
@@ -2097,6 +2261,45 @@ def phase_wideband(rows, dwell: dict):
                                 f"{len(starts)} closed ones generated")
     check(int(got_b.saturated.sum()) == 1, "wideband, blocked: the clipped "
                                            "pulse is not the one flagged")
+    # B8 at one channel as the blocked path calls it, each bit for bit the
+    # plain version: the first block's views (2^23 + halo samples from the
+    # capture's start), a middle block's (from sample 2^23) and the last
+    # block's fresh tensors (2^23 + 1 samples, T % 4 = 1: the +inf pad);
+    # the row is timed on the first block, and on a copy of it one element
+    # off a 16-byte boundary (the 4-byte loads)
+    mag, ph, sat = pdwmod._prep_streams(x, level)
+    h1 = block + cfg.max_pulse_samples
+    s_last = (n_blocks - 1) * block
+    shapes = {
+        "first": tuple(t[0:h1][:, None] for t in (mag, ph, sat)),
+        "middle": tuple(t[block:block + h1][:, None] for t in (mag, ph, sat)),
+        "last": tuple(torch.cat([t[s_last:], pad])[:, None] for t, pad in (
+            (mag, mag.new_full((1,), float("inf"))), (ph, ph.new_zeros(1)),
+            (sat, sat.new_zeros(1)))),
+    }
+    shapes["first_off_boundary"] = tuple(off_boundary(t)
+                                         for t in shapes["first"])
+    for where, streams in shapes.items():
+        a = k.cm_streams(*streams)
+        check(all(same(u, v) for u, v in
+                  zip(a, k.cm_streams_plain(*streams)))
+              and a[0].data_ptr() == streams[0].data_ptr(),
+              f"B8 blocked path, {where} block (T={streams[0].shape[0]}): "
+              f"differs from plain")
+    first, first_off = shapes["first"], shapes["first_off_boundary"]
+    a = k.cm_streams(*first)
+    rows.append(kernel_row(
+        "cm_streams_wideband", "transpose.cu", "transpose_kernel.py:136", 0.0,
+        True, time_ms(lambda: k.cm_streams(*first)),
+        time_ms(lambda: k.cm_streams_plain(*first), reps=3, warmup=1),
+        time_ms(lambda: flip_library(*first), reps=3, warmup=1),
+        n_bytes=n_bytes_of(first[1], first[2], a[1], a[2]), n_flop=0,
+        shape=f"M=1 T={h1} (a block and its halo)",
+        device_ms=device_ms(lambda: k.cm_streams(*first)),
+        scalar_loads_device_ms=device_ms(lambda: k.cm_streams(*first_off)),
+        checked_blocks={w: int(t[0].shape[0]) for w, t in shapes.items()},
+        whole_capture=b8_whole))
+    del a, first, first_off, shapes, mag, ph, sat
     out["blocked"] = {
         "samples": n, "blocks": n_blocks, "pulses": count,
         "equals_oracle_on_exact_keys": True,
@@ -2108,10 +2311,12 @@ def phase_wideband(rows, dwell: dict):
     torch.cuda.empty_cache()
     emit("wideband", max_pulses=cfg.max_pulses,
          max_pulse_samples=cfg.max_pulse_samples, fs=WIDE_FS,
-         checked=["noise_floor_wideband", "latch_cumsums_wideband",
-                  "cm_streams_wideband"], **out)
-    # the statistics kernel's row counts the streamed path's launches
+         checked=["wideband_streams", "noise_floor_wideband",
+                  "latch_cumsums_wideband", "cm_streams_wideband"], **out)
+    # the statistics kernel's row counts the streamed path's launches; B8
+    # at one channel runs on the blocked path
     del launches["pulse_stats_dense"]
+    launches["cm_streams_wideband"] = blocked_launches["cm_streams_wideband"]
     return launches
 
 
@@ -2345,6 +2550,7 @@ def phase_predict():
     cfg = PdwConfig.event(max_pulses=512, max_pulse_samples=PREDICT_WINDOW)
     counts = {"noise_floor": "nf_kernel.launches",
               "latch_cumsums": "latch_kernel.launches_tm",
+              "wideband_streams": "transpose_kernel.launches_wideband",
               "cm_streams": "transpose_kernel.launches",
               "pulse_stats_dense": "pulse_stats_kernel.launches_dense",
               "pulse_stats_long_window":
@@ -2363,8 +2569,12 @@ def phase_predict():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts(counts)
-        for key, n in launches.items():
-            check(n > 0, f"predict: never launched {key}")
+        # every dwell makes its streams with the fused form, and none flips
+        check(launches["wideband_streams"] == PREDICT_FILES
+              and launches["cm_streams"] == 0
+              and all(n > 0 for key, n in launches.items()
+                      if key != "cm_streams"),
+              f"predict: launch counts {launches}")
         plain, pred_plain, _ = predict_files(files, cfg, device=DEVICE,
                                              plain=True)
         for (path, p, ev, nxt), (_, q, ev_q, nxt_q) in zip(records, plain):
@@ -2787,7 +2997,7 @@ def main() -> int:
         kernels_flat_complex_main_shape(xq, caps["dense"], pipe, rows)
         del xq
         torch.cuda.empty_cache()
-        dwell = kernels_long_window(rows)
+        dwells = kernels_long_window(rows)
         emit("kernels", small_shapes=small, main_shape="M=64 T=262144, dense "
              "capture", block_shape=f"M=64 T={BLOCK_FRAMES + HALO_FRAMES}, "
              "block 1 of the dense capture", long_window_shape="M=1 "
@@ -2796,7 +3006,7 @@ def main() -> int:
         launches = phase_main_path(pipe, caps)
         launches.update(phase_streaming(pipe, caps))
         launches.update(phase_routes(pipe, caps))
-        launches.update(phase_wideband(rows, dwell))
+        launches.update(phase_wideband(rows, dwells))
         launches.update(phase_stats_batch(pipe, caps))
         launches.update(phase_predict())
         phase_track()

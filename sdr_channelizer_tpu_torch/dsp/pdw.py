@@ -58,6 +58,7 @@ import torch
 
 from sdr_channelizer_tpu_torch.config import PdwConfig
 from sdr_channelizer_tpu_torch.ops import cuda as kernels
+from sdr_channelizer_tpu_torch.ops.cuda import transpose_kernel
 from sdr_channelizer_tpu_torch.ops.medians import masked_median, median
 from sdr_channelizer_tpu_torch.ops.rank_find import find_ranks_cm
 
@@ -70,7 +71,12 @@ _SHORT_WINDOW = 128
 # (the JAX package's knob of the same name; the same values either way).
 _STATS_BATCH = 1
 
-_RAD2DEG = float(np.float32(180.0 / np.pi))
+# the detection streams of a capture, shared with the fused wideband kernel's
+# plain version (``ops.cuda.transpose_kernel``)
+_RAD2DEG = transpose_kernel.RAD2DEG
+_prep_streams = transpose_kernel.prep_streams
+# from this many samples on the wideband kernel tail goes block by block
+_WIDEBAND_BLOCKED_FROM = 1 << 24
 
 
 @dataclasses.dataclass
@@ -303,14 +309,6 @@ def _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx, te_idx,
     )
 
 
-def _prep_streams(iq: torch.Tensor, saturation_level: float):
-    mag = iq.abs()
-    phase_deg = torch.angle(iq) * _RAD2DEG
-    sat = ((iq.real.abs() >= saturation_level)
-           | (iq.imag.abs() >= saturation_level))
-    return mag, phase_deg, sat
-
-
 def _prep_streams_planes(yr: torch.Tensor, yi: torch.Tensor,
                          saturation_level: float):
     """Detection streams from real and imaginary float planes."""
@@ -328,6 +326,15 @@ def _kernel_tail(stats: str, where: torch.Tensor) -> bool:
     return stats == "pallas" or (stats == "auto" and where.is_cuda)
 
 
+def _wideband_tail(stats: str, where: torch.Tensor, t_len: int) -> str:
+    """The wideband tail ``stats`` means for ``t_len`` samples on
+    ``where``'s device: ``"pallas"`` (the single-shot kernel tail),
+    ``"blocked"`` or ``"xla"``."""
+    if stats != "blocked" and _kernel_tail(stats, where):
+        return "blocked" if t_len >= _WIDEBAND_BLOCKED_FROM else "pallas"
+    return stats
+
+
 def _extract_wideband_from_streams(
     mag: torch.Tensor,
     phase_deg: torch.Tensor,
@@ -335,23 +342,58 @@ def _extract_wideband_from_streams(
     cfg: PdwConfig,
     noise_floor: torch.Tensor,
     stats: str = "auto",
+    cm_streams=None,
     ops=kernels.KERNELS,
 ) -> PdwBatch:
-    """Wideband extraction from (T,) detection streams, shared by the
-    complex and the planes entry points: the kernel tail as its one-channel
-    case, block by block from 2^24 samples on, or the oracle tail."""
-    if stats != "blocked" and _kernel_tail(stats, mag):
-        stats = "blocked" if mag.shape[-1] >= (1 << 24) else "pallas"
-    if stats == "blocked":
-        return _extract_wideband_blocked(mag, phase_deg, sat, cfg,
-                                         noise_floor, ops=ops)
-    if stats == "pallas":
+    """Wideband extraction from (T,) detection streams: the kernel tail as
+    its one-channel case, block by block from 2^24 samples on, or the
+    oracle tail.  ``cm_streams`` as in :func:`_wideband_tail_run`."""
+    return _wideband_tail_run(
+        mag, phase_deg, sat, cfg, noise_floor,
+        _wideband_tail(stats, mag, mag.shape[-1]), cm_streams, ops)[1]
+
+
+def _wideband_tail_run(mag, phase_deg, sat, cfg: PdwConfig, noise_floor,
+                       tail: str, cm_streams, ops):
+    """The wideband tail ``tail`` (as :func:`_wideband_tail` resolves it) on
+    (T,) detection streams, shared by the complex and the planes entry
+    points.  ``cm_streams`` are the one-channel ``(mag_cm, dph_cm,
+    sat_cm)`` made beside ``mag`` (the single-shot kernel tail only; the
+    phase and mask are then not needed).  Returns ``(noise_floor,
+    PdwBatch)``; a floor not given is K2's on ``mag``."""
+    if noise_floor is None:
+        noise_floor = noise_floor_1d(mag, ops=ops)
+    if tail == "blocked":
+        return noise_floor, _extract_wideband_blocked(
+            mag, phase_deg, sat, cfg, noise_floor, ops=ops)
+    if tail == "pallas":
         batch = _extract_channelized_pallas_stats(
-            mag[:, None], phase_deg[:, None], sat[:, None], cfg,
-            noise_floor.reshape(1), ops=ops)
-        return PdwBatch(**{f.name: getattr(batch, f.name)[0]
-                           for f in dataclasses.fields(PdwBatch)})
-    return extract_pdws_core(mag, phase_deg, sat, noise_floor, cfg)
+            mag[:, None], None if phase_deg is None else phase_deg[:, None],
+            None if sat is None else sat[:, None], cfg,
+            noise_floor.reshape(1), cm_streams=cm_streams, ops=ops)
+        return noise_floor, PdwBatch(**{f.name: getattr(batch, f.name)[0]
+                                        for f in dataclasses.fields(PdwBatch)})
+    return noise_floor, extract_pdws_core(mag, phase_deg, sat, noise_floor,
+                                          cfg)
+
+
+def extract_pdws_with_floor(
+    iq: torch.Tensor,
+    cfg: PdwConfig,
+    noise_floor: Optional[torch.Tensor] = None,
+    stats: str = "auto",
+    ops=kernels.KERNELS,
+):
+    """:func:`extract_pdws`, returning ``(noise_floor, PdwBatch)``."""
+    tail = _wideband_tail(stats, iq, iq.shape[-1])
+    if tail == "pallas":   # the one-channel streams from the capture at once
+        mag, dph_cm, sat_cm = ops.wideband_streams(iq.contiguous(),
+                                                   cfg.saturation_level)
+        return _wideband_tail_run(mag, None, None, cfg, noise_floor, tail,
+                                  (mag[None], dph_cm, sat_cm), ops)
+    mag, phase_deg, sat = _prep_streams(iq, cfg.saturation_level)
+    return _wideband_tail_run(mag, phase_deg, sat, cfg, noise_floor, tail,
+                              None, ops)
 
 
 def extract_pdws(
@@ -365,13 +407,11 @@ def extract_pdws(
 
     ``pw_sec`` / ``freq_offset_hz`` in the returned batch are in units of
     samples and cycles per sample; :func:`finalize_pdws` scales them by the
-    true ``fs`` on the host.  ``stats`` as in the module docstring.
+    true ``fs`` on the host.  ``stats`` as in the module docstring; the
+    single-shot kernel tail makes its streams from the capture in one
+    kernel (``ops.wideband_streams``).
     """
-    mag, phase_deg, sat = _prep_streams(iq, cfg.saturation_level)
-    if noise_floor is None:
-        noise_floor = noise_floor_1d(mag, ops=ops)
-    return _extract_wideband_from_streams(mag, phase_deg, sat, cfg,
-                                          noise_floor, stats=stats, ops=ops)
+    return extract_pdws_with_floor(iq, cfg, noise_floor, stats, ops)[1]
 
 
 def extract_pdws_planes(
@@ -385,10 +425,9 @@ def extract_pdws_planes(
     """Wideband extraction from two float planes: the routing of
     :func:`extract_pdws`."""
     mag, phase_deg, sat = _prep_streams_planes(yr, yi, cfg.saturation_level)
-    if noise_floor is None:
-        noise_floor = noise_floor_1d(mag, ops=ops)
-    return _extract_wideband_from_streams(mag, phase_deg, sat, cfg,
-                                          noise_floor, stats=stats, ops=ops)
+    return _wideband_tail_run(mag, phase_deg, sat, cfg, noise_floor,
+                              _wideband_tail(stats, yr, yr.shape[-1]), None,
+                              ops)[1]
 
 
 def extract_pdws_channelized_streams(

@@ -144,7 +144,7 @@ class ChannelizerPipeline:
         else:
             # flipped once, ahead of the floor; the tail takes the flip
             mag, ph, sat = front("flat")
-            cm = ops.cm_streams(mag, ph, sat > 0.5)
+            cm = ops.cm_streams(mag, ph, sat)   # B5's 0/1 mask as it is
         nf = pdwmod.noise_floor_cm(cm[0], m, mag.shape[0], ops=ops)
         batch = pdwmod._extract_channelized_pallas_stats(
             mag, None, None, cfg, nf, cm_streams=tuple(cm), ops=ops)
@@ -301,9 +301,10 @@ class WidebandPdwPipeline:
 
     ``device`` as in :class:`ChannelizerPipeline`: the CUDA device unless the
     caller asked for ``"cpu"``.  On the card the extraction takes the kernel
-    tail (the time-major latch, the flip kernel and the statistics kernel at
-    one channel; block by block from 2^24 samples on), on the CPU the oracle
-    tail.
+    tail (the one-channel streams made from the capture in one kernel, the
+    time-major latch and the statistics kernel at one channel; block by
+    block from 2^24 samples on, with the flip kernel a block), on the CPU
+    the oracle tail.
     """
 
     pdw_cfg: PdwConfig = dataclasses.field(default_factory=PdwConfig.wideband)
@@ -329,11 +330,7 @@ class WidebandPdwPipeline:
         one against the other."""
         ops = kernels.PLAIN if plain else kernels.KERNELS
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.complex64)
-        mag, ph, sat = pdwmod._prep_streams(x, self.pdw_cfg.saturation_level)
-        nf = pdwmod.noise_floor_1d(mag, ops=ops)
-        batch = pdwmod._extract_wideband_from_streams(
-            mag, ph, sat, self.pdw_cfg, nf, ops=ops)
-        return nf, batch
+        return pdwmod.extract_pdws_with_floor(x, self.pdw_cfg, ops=ops)
 
     def step(self, x) -> Tuple[torch.Tensor, PdwBatch]:
         return self.forward(x)

@@ -48,6 +48,8 @@ from sdr_channelizer_tpu_torch.ops.cuda.pulse_stats_kernel import (  # noqa: F40
 from sdr_channelizer_tpu_torch.ops.cuda.transpose_kernel import (  # noqa: F401
     cm_streams,
     cm_streams_plain,
+    wideband_streams,
+    wideband_streams_plain,
 )
 
 
@@ -59,7 +61,8 @@ class StageOps:
     flip (``cm_streams``), the flat front end (``channelize_flat``) and the
     complex bands (``channelize_complex``, from two float32 planes).  The
     ``*_planes`` stages are the three stream front ends on two planes
-    instead of packed pairs."""
+    instead of packed pairs.  ``wideband_streams`` makes the wideband
+    path's one-channel streams from its complex capture."""
 
     channelize: Callable
     noise_floor: Callable
@@ -74,6 +77,7 @@ class StageOps:
     channelize_planes: Callable
     channelize_cm_planes: Callable
     channelize_flat_planes: Callable
+    wideband_streams: Callable
 
 
 KERNELS = StageOps(channelize_streams_packed_cm2, noise_floor_cm,
@@ -81,11 +85,13 @@ KERNELS = StageOps(channelize_streams_packed_cm2, noise_floor_cm,
                    channelize_streams_packed_cm, latch_cumsums,
                    pulse_stats_dense, cm_streams, channelize_streams_packed,
                    channelize_complex_planes, channelize_streams_cm2,
-                   channelize_streams_cm, channelize_streams)
+                   channelize_streams_cm, channelize_streams,
+                   wideband_streams)
 PLAIN = StageOps(channelize_streams_packed_cm2_plain, noise_floor_cm_plain,
                  latch_cumsums_cm_plain, pulse_stats_plain,
                  channelize_streams_packed_cm_plain, latch_cumsums_plain,
                  pulse_stats_dense_plain, cm_streams_plain,
                  channelize_streams_packed_plain,
                  channelize_complex_planes_plain, channelize_streams_cm2_plain,
-                 channelize_streams_cm_plain, channelize_streams_plain)
+                 channelize_streams_cm_plain, channelize_streams_plain,
+                 wideband_streams_plain)
