@@ -21,8 +21,19 @@ statistics kernel on the main path and route ``"cm"`` (``stats_batch``:
 PDWs bit for bit those of the per-slot kernel), event prediction (eight 80
 ms dwells at 56 Msps of a scanning beam, written by the recorder, through
 ``predict`` in-process, against its plain run, and through the CLI) and the
-closed-loop tracker (20 dwells synthesised on the card); and runs the CLI,
-the capture commands included.  One JSON line per phase; any failure exits
+closed-loop tracker (20 dwells synthesised on the card); then the capture
+containers (``ingest_views``: the sparse capture as ``.iq``, converted by
+the CLI to a raw ``.npz``, a raw v5 ``.mat``, a raw v7.3 ``.mat`` and a
+normalised ``.npz``, each through the main path; ``channelize`` on the card,
+B9 once a file; ``waterfall_window_pngs``, B9 once a window; the
+spectrogram of the wideband capture packed at bit width 12, against a
+float64 STFT, timed beside its bound and the cuFFT form); and runs the CLI,
+the capture commands and the views included (``convert``, ``pdw`` on
+every container, ``spectrogram``, ``plot``, ``pdw --png``, ``predict
+--png``, ``txrx``, ``provision --dry-run``).  A step that needs
+``matplotlib``, ``h5py`` or ``cv2`` runs where the library is installed;
+the line ``skipped`` names each step left out and its library.  One JSON
+line per phase; any failure exits
 non-zero.  The small shapes include the latch's scans across segments,
 time-major (a pulse over many segments, holds over whole segments, a latch
 entered active with no transfer, one channel of 2^24 - 1 samples) and
@@ -55,6 +66,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -97,6 +109,7 @@ DPH_TOL_DEG = 0.05      # modulo 360; plus the angle MAG_TOL subtends at |y|
 SAT_HOVER = 1e-5        # |Re| or |Im| this close to the level may flip
 SNR_TOL_DB = 1e-3
 FREQ_TOL_HZ = 50.0
+SPEC_TOL = 1e-5         # of the mesh's largest power (float32 products)
 DENSE_COUNT_BAND = 0.02  # kernels' vs plain versions' pulse count
 
 
@@ -2861,6 +2874,307 @@ def phase_profile_streaming(pipe, caps):
          rest_ms=sum(r["ms"] for r in rows[14:]))
 
 
+def have(lib: str) -> bool:
+    """Whether ``lib`` is installed (the views' libraries are optional)."""
+    import importlib.util
+
+    return importlib.util.find_spec(lib) is not None
+
+
+def run_cli(argv) -> list:
+    """``python -m sdr_channelizer_tpu_torch <argv>`` in this process; the
+    paths and lines it printed.  Fails on a non-zero exit."""
+    from sdr_channelizer_tpu_torch.cli.main import main
+
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = main(argv)
+    check(rc == 0, f"cli {' '.join(argv[:2])}: exit code {rc}")
+    return said.getvalue().splitlines()
+
+
+def spectrogram_f64(iq: np.ndarray, length: int) -> np.ndarray:
+    """The spectrogram's float64 oracle: the same Hamming-windowed frames,
+    FFT, ``fftshift``, |.|^2."""
+    w = 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(length) / (length - 1))
+    frames = iq[: len(iq) // length * length].reshape(-1, length)
+    spec = np.fft.fft(frames.astype(np.complex128) * w, axis=-1)
+    return np.abs(np.fft.fftshift(spec, axes=-1)) ** 2
+
+
+def phase_ingest_views(pipe, caps):
+    """Every capture container at the main path's size, the spectrogram and
+    ``channelize`` on the card.
+
+    The sparse capture (M = 64 x 262144 frames, int16, bit width 12) is
+    written as ``.iq`` and converted by the CLI to a raw ``.npz``, a raw v5
+    ``.mat``, a normalised ``.npz`` and, with ``h5py``, a raw v7.3 ``.mat``;
+    each raw payload goes through ``extract_fused`` (K1 once each, PDWs bit
+    for bit the ``.iq`` run's), the normalised one through ``extract``.
+    The wideband 16M capture at bit width 12 goes packed through
+    ``stft_power_packed``, held against a float64 STFT and ``stft_power``;
+    ``channelize`` runs B9 once a file, and ``waterfall_window_pngs`` once
+    a window (its renderer replaced by a recorder, so that it runs without
+    ``matplotlib``; each |y| held against the plain version).  The launches
+    counted here go on this phase's line, not on the kernels line."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
+    from sdr_channelizer_tpu_torch.dsp.spectrogram import (
+        _windowed_dft_power_planes, hamming, stft_power, stft_power_packed)
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.io.convert import (
+        load_capture, load_capture_raw)
+    from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
+    from sdr_channelizer_tpu_torch.viz import plots
+
+    fs = M_MAIN * 1e6
+    samples = caps["sparse"]
+    skipped = []
+    # this phase's own counts; the kernels line reads the main path's
+    launches = {"channelize_streams_packed_cm2": {}, "channelize_complex": 0}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "sparse.iq")
+        iqpacket.write_iq(src, iqpacket.IqHeader(
+            frequency_hz=0.0, bandwidth_hz=fs, sample_rate_sps=fs,
+            rx_gain_db=0.0, num_samples=len(samples), bit_width=BIT_WIDTH,
+            sample_start_time=0.0), samples)
+        paths = {"iq": src}
+        conversions = [("npz_raw", ["--raw"]), ("mat_raw", ["--mat", "--raw"]),
+                       ("npz", [])]
+        if have("h5py"):
+            conversions.append(("mat73_raw", ["--mat", "--v73", "--raw"]))
+        else:
+            skipped.append({"step": "convert --mat --v73 --raw (main size)",
+                            "missing": "h5py"})
+        convert_s = {}
+        for kind, flags in conversions:
+            t0 = time.perf_counter()
+            paths[kind] = run_cli(["convert", src, "--out-dir",
+                                   os.path.join(tmp, kind)] + flags)[-1]
+            convert_s[kind] = time.perf_counter() - t0
+
+        # the raw containers: the main path, K1 once each, the .iq's PDWs
+        containers, ref = {}, None
+        for kind in ("iq", "npz_raw", "mat_raw", "mat73_raw"):
+            if kind not in paths:
+                continue
+            t0 = time.perf_counter()
+            raw, bw, meta = load_capture_raw(paths[kind])
+            load_s = time.perf_counter() - t0
+            check(raw is not None and raw.dtype == np.int16
+                  and bw == BIT_WIDTH and np.array_equal(raw, samples),
+                  f"{kind}: the raw payload is not the .iq payload")
+            ck.launches = 0
+            got = pipe.extract_fused(raw, bw, fs=float(meta["fs"]))
+            check(ck.launches == 1, f"{kind}: K1 launched {ck.launches} "
+                                    f"times, not once")
+            launches["channelize_streams_packed_cm2"][kind] = ck.launches
+            if ref is None:
+                ref = got
+            else:
+                pdws_identical(got, ref, f"{kind} container vs the .iq file")
+            containers[kind] = {"load_s": load_s,
+                                "bytes": os.path.getsize(paths[kind]),
+                                "pulses": len(got["toa"]),
+                                "equals_iq_bit_for_bit": True}
+        # the normalised container: extract, the cm2 form on float planes
+        t0 = time.perf_counter()
+        iq, meta = load_capture(paths["npz"])
+        load_s = time.perf_counter() - t0
+        ck.launches = 0
+        got = pipe.extract(iq, fs=float(meta["fs"]))
+        check(ck.launches == 1, "normalised .npz: the cm2 form on float "
+                                "planes was not launched once")
+        launches["channelize_streams_packed_cm2"]["npz"] = ck.launches
+        pdws_agree(got, ref, "normalised .npz container vs the .iq file")
+        containers["npz"] = {"load_s": load_s,
+                             "bytes": os.path.getsize(paths["npz"]),
+                             "pulses": len(got["toa"])}
+        for kind, sec in convert_s.items():
+            containers[kind]["convert_s"] = sec
+        out["containers"] = containers
+
+        # channelize on the card: B9 once a file, chan_iq held against the
+        # kernel's plain version on the same planes
+        chan = Channelizer.create(M_MAIN)
+        deq = iqpacket.to_complex(samples, BIT_WIDTH)
+        xr = torch.as_tensor(np.ascontiguousarray(deq.real), device=DEVICE)
+        xi = torch.as_tensor(np.ascontiguousarray(deq.imag), device=DEVICE)
+        want = ck.channelize_complex_planes_plain(xr, xi, chan.taps_rev)
+        del xr, xi
+        chan_out, chan_s, y_ref = {}, {}, None
+        for kind in ("iq", "npz_raw", "mat_raw"):
+            npz = os.path.join(tmp, f"chan_{kind}.npz")
+            ck.launches_complex = 0
+            t0 = time.perf_counter()
+            run_cli(["channelize", paths[kind], "--out", npz])
+            chan_s[kind] = time.perf_counter() - t0
+            check(ck.launches_complex == 1, f"channelize {kind}: B9 launched "
+                                            f"{ck.launches_complex} times")
+            launches["channelize_complex"] += ck.launches_complex
+            y = np.load(npz)["chan_iq"]
+            check(y.shape == (FRAMES_MAIN, M_MAIN),
+                  f"channelize {kind}: chan_iq of shape {y.shape}")
+            if y_ref is None:
+                y_ref = y
+                yt = torch.as_tensor(y, device=DEVICE).to(torch.complex64)
+                check(bool(torch.isfinite(yt).all()), "channelize: non-finite "
+                                                     "chan_iq")
+                err = float((yt - want).abs().max())
+                check(bool(torch.allclose(yt, want, rtol=MAG_TOL,
+                                          atol=MAG_TOL)),
+                      f"channelize: chan_iq differs from the plain version "
+                      f"(max |d| {err})")
+                del yt
+            else:
+                check(np.array_equal(y, y_ref), f"channelize {kind}: chan_iq "
+                                                "differs from the .iq file's")
+        del want
+        # the waterfall's windows on the card, whatever is installed: the
+        # renderer replaced by a recorder, B9 once a window, each |y| held
+        # against |plain| on the window's planes
+        seen = []
+        real_png = plots.waterfall_png
+        plots.waterfall_png = lambda p, y, *a, **k: seen.append(y)
+        try:
+            ck.launches_complex = 0
+            t0 = time.perf_counter()
+            plots.waterfall_window_pngs(os.path.join(tmp, "windows"), deq, fs,
+                                        M_MAIN, limit=4, device=DEVICE)
+            chan_s["windows"] = time.perf_counter() - t0
+        finally:
+            plots.waterfall_png = real_png
+        check(len(seen) == 4 and ck.launches_complex == 4,
+              f"waterfall windows: {len(seen)} windows, B9 launched "
+              f"{ck.launches_complex} times")
+        launches["channelize_complex_windows"] = ck.launches_complex
+        win = int(5e-3 * fs) // M_MAIN * M_MAIN
+        win_err = 0.0
+        for k, y in enumerate(seen):
+            w = deq[k * 100 * M_MAIN: k * 100 * M_MAIN + win]
+            pw = ck.channelize_complex_planes_plain(
+                torch.as_tensor(np.ascontiguousarray(w.real), device=DEVICE),
+                torch.as_tensor(np.ascontiguousarray(w.imag), device=DEVICE),
+                chan.taps_rev)
+            pm = torch.sqrt(pw.real * pw.real + pw.imag * pw.imag)
+            yt = torch.as_tensor(y, device=DEVICE)
+            check(yt.shape == pm.shape and bool(torch.isfinite(yt).all()),
+                  f"waterfall window {k}: |y| of shape {tuple(yt.shape)}")
+            win_err = max(win_err, float((yt - pm).abs().max()))
+            check(bool(torch.allclose(yt, pm, rtol=MAG_TOL, atol=MAG_TOL)),
+                  f"waterfall window {k}: |y| differs from |plain| "
+                  f"(max |d| {win_err})")
+        frames = 0
+        if have("matplotlib"):
+            fr_dir = os.path.join(tmp, "frames")
+            argv = ["channelize", src, "--out", os.path.join(tmp, "c.npz"),
+                    "--frames-dir", fr_dir, "--frame-limit", "4"]
+            video = have("cv2") or shutil.which("ffmpeg") is not None
+            if video:
+                argv += ["--video", os.path.join(tmp, "waterfall.mp4")]
+            else:
+                skipped.append({"step": "channelize --video",
+                                "missing": "cv2 and ffmpeg"})
+            ck.launches_complex = 0
+            t0 = time.perf_counter()
+            printed = run_cli(argv)
+            chan_s["frames"] = time.perf_counter() - t0
+            frames = sum(p.endswith(".png") for p in printed)
+            check(frames == 4 and ck.launches_complex == 1 + frames,
+                  f"channelize --frames-dir: {frames} frames, B9 launched "
+                  f"{ck.launches_complex} times")
+            launches["channelize_frames_dir"] = ck.launches_complex
+            check(not video or os.path.getsize(printed[-1]) > 0,
+                  "channelize --video: no video")
+        else:
+            skipped.append({"step": "channelize --frames-dir / --video",
+                            "missing": "matplotlib"})
+        out["channelize"] = {
+            "files": 3, "windows": len(seen), "frames": frames,
+            "wall_s": chan_s, "max_abs_err_vs_plain": err,
+            "windows_max_abs_err_vs_plain": win_err}
+        del y_ref, deq
+
+    # the spectrogram: 16,000,000 samples at bit width 12, window 768
+    _, wiq = wideband_capture(WIDE_SAMPLES, 1e-3, 1234, seed=3)
+    wsamples = quantize(wiq)
+    del wiq
+    length = 768
+    n_frames = WIDE_SAMPLES // length
+    xq = torch.as_tensor(pack(wsamples), device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    power = stft_power_packed(xq, BIT_WIDTH, device=DEVICE)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0   # the DFT matrix built on the host
+    peak = torch.cuda.max_memory_allocated() - base
+    check(power.shape == (n_frames, length) and power.dtype == torch.float32
+          and bool(torch.isfinite(power).all()),
+          f"spectrogram: {tuple(power.shape)} {power.dtype}")
+    deq = iqpacket.to_complex(wsamples, BIT_WIDTH)
+    oracle = spectrogram_f64(deq, length)
+    top = float(oracle.max())
+    err64 = float(np.abs(power.cpu().numpy() - oracle).max()) / top
+    del oracle
+    check(err64 <= SPEC_TOL, f"spectrogram: {err64} of the largest power "
+                             f"from the float64 STFT")
+    xc = torch.as_tensor(deq, device=DEVICE)
+    del deq
+    as_float = stft_power(xc, device=DEVICE)
+    err_float = max_abs(power, as_float) / top
+    check(err_float <= SPEC_TOL, f"spectrogram: {err_float} of the largest "
+                                 f"power from stft_power")
+    err_fft = max_abs(stft_power(xc, method="fft", device=DEVICE), power) / top
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        stft_power_packed(xq[: 4 * length], BIT_WIDTH, device=DEVICE)
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(refused, "spectrogram: TF32 products were not refused")
+    ms = time_ms(lambda: stft_power_packed(xq, BIT_WIDTH, device=DEVICE))
+    fft_ms = time_ms(lambda: stft_power(xc, method="fft", device=DEVICE))
+    # where the time goes: the unpacking, then the products and |.|^2
+    framed = xq[: n_frames * length].reshape(n_frames, length)
+    unpack_ms = time_ms(lambda: ck.unpack_pairs(framed))
+    i, q = ck.unpack_pairs(framed)
+    xr, xi = i * 2.0 ** -(BIT_WIDTH - 1), q * 2.0 ** -(BIT_WIDTH - 1)
+    del i, q
+    window = hamming(length)
+    products_ms = time_ms(lambda: _windowed_dft_power_planes(xr, xi, length,
+                                                             window))
+    del xr, xi, framed
+    n_flop = 8 * n_frames * length * length   # four (F, L) x (L, L) products
+    n_bytes = xq.numel() * 4 + power.numel() * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_flop = n_flop / FP32_FLOP_PER_S * 1e3
+    out["spectrogram"] = {
+        "samples": WIDE_SAMPLES, "window": length, "frames": n_frames,
+        "bit_width": BIT_WIDTH, "max_err_vs_float64_of_peak": err64,
+        "max_err_vs_stft_power_of_peak": err_float,
+        "equals_stft_power_bit_for_bit": same(power, as_float),
+        "cufft_form_max_err_of_peak": err_fft, "tf32_refused": True,
+        "ms": ms, "first_call_s": first_s, "unpack_ms": unpack_ms,
+        "products_ms": products_ms, "cufft_form_ms": fft_ms,
+        "bound_ms": max(t_bytes, t_flop),
+        "bound_by": "bytes" if t_bytes >= t_flop else "operations",
+        # the same function by an FFT: about 5 L log2 L operations a frame
+        "fft_form_bound_ms": max(t_bytes, 5 * n_frames * length
+                                 * np.log2(length) / FP32_FLOP_PER_S * 1e3),
+        "gflop": n_flop / 1e9, "peak_memory_bytes": peak}
+    del xq, xc, power, as_float
+    torch.cuda.empty_cache()
+    emit("ingest_views", bands=M_MAIN, frames=FRAMES_MAIN,
+         launches=launches, skipped=skipped, **out)
+    return skipped
+
+
 def phase_cli():
     """A synthetic ``.iq`` file through ``pdw --channelized`` on the card,
     then the same samples as two files through ``pdw --stream``, then
@@ -2941,6 +3255,8 @@ def phase_cli():
                        "--offset-mhz", "0.13", "--noise-db", "-300"])
         check(rc == 0 and "Max unsaturated gain: 59.0 dB" in said.getvalue(),
               f"cli gain-search: exit {rc}")
+        views, skipped = cli_views(tmp, path, os.path.join(tmp, "pdw.npz"),
+                                   recorded, common)
     starts = pulse_starts(spec)
     sel = (p["snr"] > 25) & (np.abs(p["freq"] - spec.frequency_hz) < 0.5e6)
     check(int(sel.sum()) == len(starts),
@@ -2960,7 +3276,80 @@ def phase_cli():
     emit("cli", pulses=int(len(p["toa"])), in_tone_bin=int(sel.sum()),
          sent=int(len(starts)), stream_pulses=int(len(ps["toa"])),
          wideband_pulses=int(len(pw["toa"])), recorded=len(recorded),
-         predict=predicted.splitlines()[-1], track=tracked)
+         predict=predicted.splitlines()[-1], track=tracked, views=views,
+         skipped=skipped)
+    return skipped
+
+
+def cli_views(tmp: str, path: str, pdw_npz: str, recorded: list,
+              common: list):
+    """``convert`` to every container, ``pdw --channelized`` on each (the
+    ``.iq`` run's PDWs bit for bit), ``spectrogram``, ``plot``, ``pdw
+    --png`` and ``predict --png`` (with ``matplotlib``), ``txrx`` and
+    ``provision --dry-run``.  A step whose library is missing is left out
+    and listed."""
+    from sdr_channelizer_tpu_torch.capture.txrx import matched_filter_delay
+    from sdr_channelizer_tpu_torch.io import iqpacket
+
+    skipped = []
+    d = os.path.join(tmp, "views")
+    containers = {path: True}   # path: whether it holds the raw payload
+    for flags in (["--raw"], [], ["--mat", "--raw"], ["--mat"],
+                  ["--mat", "--v73", "--raw"]):
+        if "--v73" in flags and not have("h5py"):
+            skipped.append({"step": "convert --mat --v73", "missing": "h5py"})
+            continue
+        name = "_".join(f.lstrip("-") for f in flags) or "npz"
+        out = run_cli(["convert", path, "--out-dir", os.path.join(d, name)]
+                      + flags)[-1]
+        check(os.path.getsize(out) > 0, f"cli convert {flags}: empty file")
+        containers[out] = "--raw" in flags
+    # pdw on each container: a raw payload gives the .iq file's PDWs bit for
+    # bit (the same packed main path), a float one within the float bars
+    ref = dict(np.load(pdw_npz))
+    for i, (c, raw) in enumerate(list(containers.items())[1:]):
+        npz = os.path.join(d, f"pdw_{i}.npz")
+        run_cli(["pdw", c, "--channelized", "--out", npz] + common)
+        got = dict(np.load(npz))
+        (pdws_identical if raw else pdws_agree)(got, ref, f"cli pdw {c}")
+    views = {"containers": [os.path.relpath(c, tmp) for c in containers]}
+    if have("matplotlib"):
+        pngs = []
+        for c in containers:
+            pngs += run_cli(["spectrogram", c, "--out-dir",
+                             os.path.join(d, "spec", str(len(pngs)))])
+            pngs += run_cli(["plot", c, "--out-dir",
+                             os.path.join(d, "plot", str(len(pngs)))])
+        png = os.path.join(d, "pdw.png")
+        pngs.append(run_cli(["pdw", path, "--channelized", "--out",
+                             os.path.join(d, "pdw_png.npz"), "--png", png]
+                            + common)[-1])
+        png = os.path.join(d, "predict.png")
+        run_cli(["predict", *recorded, "--max-pulse-samples", "4096",
+                 "--device", DEVICE, "--png", png])
+        pngs.append(png)
+        for p in pngs:
+            with open(p, "rb") as f:
+                check(f.read(8) == b"\x89PNG\r\n\x1a\n", f"cli: {p} is "
+                                                          f"not a PNG")
+        views["pngs"] = len(pngs)
+    else:
+        skipped += [{"step": step, "missing": "matplotlib"} for step in
+                    ("spectrogram", "plot", "pdw --png", "predict --png")]
+    tx, rx = run_cli(["txrx", "1000", "8", "8", "0", "0.01", "0.004",
+                      "10e-6", "1e-3", "--barker13", "--out-dir",
+                      os.path.join(d, "txrx")])
+    tx_iq, rx_iq = (iqpacket.to_complex(np.asarray(iqpacket.read_iq(f)[1]),
+                                        12) for f in (tx, rx))
+    delay = matched_filter_delay(tx_iq, rx_iq, max_lag=8000)
+    check(delay == 100, f"cli txrx: matched-filter delay {delay}, not 100")
+    lines = run_cli(["provision", "A5", "--dry-run"])
+    check(lines == ["bladeRF-cli -l ~/workarea/hostedxA5_v0.15.3.rbf",
+                    "bladeRF-cli -f ~/workarea/bladeRF_fw_v2.4.0.img",
+                    "bladeRF-cli -e info -e version"],
+          f"cli provision --dry-run: {lines}")
+    views.update(txrx_delay=delay, provision_lines=len(lines))
+    return views, skipped
 
 
 def main() -> int:
@@ -3013,7 +3402,13 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             phase_profile(pipe, caps, rows)
             phase_profile_streaming(pipe, caps)
-        phase_cli()
+        skipped = phase_ingest_views(pipe, caps)
+        skipped += phase_cli()
+        # the views' libraries are optional: what was left out, and why
+        emit("skipped", steps=skipped,
+             installed={lib: have(lib) for lib in ("matplotlib", "h5py",
+                                                   "cv2", "scipy")},
+             ffmpeg=shutil.which("ffmpeg") is not None)
     except SmokeFailure as e:
         print(json.dumps({"ok": False, "error": str(e)}), flush=True)
         return 1

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Union
 
 import torch
@@ -20,3 +21,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "available; pass device='cpu' explicitly to use the plain "
             "PyTorch versions on the host")
     return device
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or a host array) as a tensor on ``device``, without
+    the warning ``torch.as_tensor`` gives for a read-only array: a payload
+    read from disk may be read-only, and it is never written."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.as_tensor(x).to(device)

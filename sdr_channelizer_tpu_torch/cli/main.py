@@ -1,10 +1,14 @@
-"""CLI entry point of the port: ``generate``, ``record``, ``gain-search``,
-``pdw`` (wideband, or channelized with ``--channelized``), ``pdw --stream
-[--channelized]``, ``predict`` and ``track``.
+"""CLI entry point of the port, one subcommand per reference workflow:
+``generate``, ``record``, ``gain-search``, ``convert``, ``channelize``,
+``pdw`` (wideband, or channelized with ``--channelized``; ``--stream``
+blockwise over multi-file segments), ``predict``, ``track``, ``txrx``,
+``spectrogram``, ``plot`` and ``provision``.  Every command that reads a
+capture takes ``.iq``, ``.npz``, ``.mat`` (v5 and v7.3) and legacy ``.bin``
+files; the commands that compute run on the CUDA device unless ``--device
+cpu`` is given.
 
-The other workflows of the JAX package's CLI are not ported yet; an option
-of a ported command that is not ported yet exits with an error that says
-so.
+Multi-device extraction (``pdw --shards``, ``--strict-halo``) and ``bench``
+are not ported yet and exit with an error that says so.
 """
 
 from __future__ import annotations
@@ -20,6 +24,14 @@ import numpy as np
 
 def _not_ported(what: str) -> "SystemExit":
     return SystemExit(f"error: not ported yet: {what}")
+
+
+def _out_path(in_path: str, out_dir: Optional[str], new_ext: str) -> str:
+    base = os.path.basename(in_path)
+    stem = base.rsplit(".", 1)[0]
+    d = out_dir or os.path.dirname(in_path) or "."
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, stem + new_ext)
 
 
 def cmd_generate(args) -> int:
@@ -151,12 +163,99 @@ def cmd_gain_search(args) -> int:
     return 0
 
 
+def cmd_convert(args) -> int:
+    """convert_my_iq_to_mat.m / convert_iq_to_mat.m parity: ``.iq`` ->
+    ``.npz`` (or ``.mat`` with ``--mat``, v7.3 with ``--v73``), normalised
+    or with ``--raw`` the integer payload; legacy ``.bin`` -> ``.npz``."""
+    from sdr_channelizer_tpu_torch.io import convert
+
+    for path in args.files:
+        if path.endswith(".bin"):
+            iq, fs, fc, idx = convert.read_legacy_bin(path)
+            out = _out_path(path, args.out_dir, ".npz")
+            np.savez(out, iq=iq, fs=fs, fc=fc, index=idx)
+        elif args.mat:
+            out = _out_path(path, args.out_dir, ".mat")
+            convert.iq_to_mat(path, out, normalize=not args.raw,
+                              v73=args.v73)
+        else:
+            out = _out_path(path, args.out_dir, ".npz")
+            convert.iq_to_npz(path, out, normalize=not args.raw)
+        print(out)
+    return 0
+
+
 def _bands_for(args, fs: float) -> int:
     from sdr_channelizer_tpu_torch.config import bands_for_bin_width
 
     if args.bands:
         return args.bands
     return bands_for_bin_width(fs, args.bin_width_hz)
+
+
+def cmd_channelize(args) -> int:
+    """channelizer_example.m parity: channelize and render the waterfall.
+    On the card the channelizer kernel's complex form runs on the capture's
+    two float32 planes and the complex spectra are assembled on the host;
+    on the CPU the FFT oracle runs."""
+    from sdr_channelizer_tpu_torch._device import resolve_device
+    from sdr_channelizer_tpu_torch.dsp.channelizer import (
+        Channelizer,
+        channelize,
+        channelize_planes,
+    )
+    from sdr_channelizer_tpu_torch.io.convert import load_capture
+
+    device = resolve_device(args.device)
+    for path in args.files:
+        iq, meta = load_capture(path)
+        fs = float(meta["fs"])
+        m = _bands_for(args, fs)
+        chan = Channelizer.create(m, taps_per_band=args.taps_per_band)
+        n = len(iq) // m * m
+        if device.type == "cuda":
+            yr, yi = channelize_planes(
+                np.ascontiguousarray(np.real(iq[:n]), np.float32),
+                np.ascontiguousarray(np.imag(iq[:n]), np.float32),
+                chan, device=device)
+            y = yr.cpu().numpy() + 1j * yi.cpu().numpy()
+        else:
+            y = channelize(iq[:n], chan, method="fft", device=device).numpy()
+        if args.out or len(args.files) == 1:
+            out = args.out or _out_path(path, args.out_dir, "_chan.npz")
+            np.savez(out, chan_iq=y, fs=fs / m,
+                     center_frequencies=chan.center_frequencies(fs) + meta.get("fc", 0.0),
+                     sample_start_time=meta.get("sampleStartTime", 0.0))
+            print(out)
+        if args.png:
+            from sdr_channelizer_tpu_torch.viz import waterfall_png
+
+            png = args.png if args.png != "auto" else _out_path(path, args.out_dir, "_waterfall.png")
+            waterfall_png(png, np.abs(y), fs, meta.get("fc", 0.0),
+                          title=os.path.basename(path))
+            print(png)
+        if args.frames_dir or args.video:
+            import tempfile
+
+            from sdr_channelizer_tpu_torch.viz import waterfall_window_pngs
+
+            frames_dir = args.frames_dir or tempfile.mkdtemp(
+                prefix="waterfall_frames_")
+            frames = waterfall_window_pngs(
+                frames_dir, iq[:n], fs, m, meta.get("fc", 0.0),
+                window_sec=args.frame_window_sec, limit=args.frame_limit,
+                device=device,
+            )
+            if args.frames_dir:
+                for p in frames:
+                    print(p)
+            if args.video:
+                from sdr_channelizer_tpu_torch.viz import waterfall_video
+
+                video = (args.video if args.video != "auto"
+                         else _out_path(path, args.out_dir, "_waterfall.mp4"))
+                print(waterfall_video(video, frames, fps=args.video_fps))
+    return 0
 
 
 def _save_pdws(args, all_pdws) -> int:
@@ -166,6 +265,11 @@ def _save_pdws(args, all_pdws) -> int:
     out = args.out or "pdw.npz"
     np.savez(out, **merged)
     print(out)
+    if args.png:
+        from sdr_channelizer_tpu_torch.viz import pdw_plot_png
+
+        pdw_plot_png(args.png, merged)
+        print(args.png)
     return 0
 
 
@@ -217,12 +321,14 @@ def _pdw_stream(args) -> int:
 
 def cmd_pdw(args) -> int:
     """create_pdws.m parity (wideband) and, with ``--channelized``,
-    create_pdws_channelized.m parity through the packed main path, for
-    integer-payload ``.iq`` files; with ``--stream``, blockwise over
-    contiguous multi-file segments."""
+    create_pdws_channelized.m parity, for every capture container: an
+    integer payload (``.iq``, a raw ``.npz`` or ``.mat``) goes packed
+    through the main path (``extract_fused``), a float one (a normalised
+    ``.npz`` or ``.mat``, a legacy ``.bin``) through ``extract``; with
+    ``--stream``, blockwise over contiguous multi-file ``.iq`` segments."""
     from sdr_channelizer_tpu_torch.config import PdwConfig
     from sdr_channelizer_tpu_torch.io import iqpacket
-    from sdr_channelizer_tpu_torch.io.convert import load_capture_raw
+    from sdr_channelizer_tpu_torch.io.convert import load_capture_payload
     from sdr_channelizer_tpu_torch.models import (
         ChannelizerPipeline,
         WidebandPdwPipeline,
@@ -230,17 +336,17 @@ def cmd_pdw(args) -> int:
 
     if args.shards > 1:
         raise _not_ported("pdw --shards (multi-device extraction)")
+    if args.strict_halo:
+        raise _not_ported("pdw --strict-halo (multi-device extraction)")
     if args.stream:
         return _pdw_stream(args)
 
     all_pdws = []
     for path in args.files:
-        try:
-            raw, bw, meta = load_capture_raw(path)
-        except NotImplementedError as e:
-            raise SystemExit(f"error: {e}")
-        if raw.dtype not in (np.int16, np.int8):
-            raise _not_ported(f"{raw.dtype} payloads ({path})")
+        raw, bw, iq, meta = load_capture_payload(path)
+        if raw is not None and raw.dtype not in (np.int16, np.int8):
+            # a wider integer payload: dequantize on the host
+            raw, iq = None, iqpacket.to_complex(raw, bw)
         fs = float(meta["fs"])
         fc = float(meta.get("fc", 0.0))
         t0 = float(meta.get("sampleStartTime", 0.0))
@@ -251,8 +357,8 @@ def cmd_pdw(args) -> int:
                 cfg = dataclasses.replace(cfg,
                                           snr_threshold_db=args.threshold_db)
             pipe = WidebandPdwPipeline(pdw_cfg=cfg, device=args.device)
-            pdws = pipe.extract(iqpacket.to_complex(raw, bw), fs=fs, fc=fc,
-                                sample_start_time=t0)
+            x = iqpacket.to_complex(raw, bw) if raw is not None else iq
+            pdws = pipe.extract(x, fs=fs, fc=fc, sample_start_time=t0)
             all_pdws.append(pdws)
             print(f"{path}: {len(pdws['toa'])} pulses")
             continue
@@ -262,9 +368,13 @@ def cmd_pdw(args) -> int:
         if args.threshold_db is not None:
             cfg = dataclasses.replace(cfg, snr_threshold_db=args.threshold_db)
         pipe = ChannelizerPipeline.create(m, pdw_cfg=cfg, device=args.device)
-        n = len(raw) // m * m
-        pdws = pipe.extract_fused(raw[:n], bit_width=bw, fs=fs, fc=fc,
-                                  sample_start_time=t0)
+        if raw is not None:
+            n = len(raw) // m * m
+            pdws = pipe.extract_fused(raw[:n], bit_width=bw, fs=fs, fc=fc,
+                                      sample_start_time=t0)
+        else:
+            n = len(iq) // m * m
+            pdws = pipe.extract(iq[:n], fs=fs, fc=fc, sample_start_time=t0)
         all_pdws.append(pdws)
         print(f"{path}: {len(pdws['toa'])} pulses")
     return _save_pdws(args, all_pdws)
@@ -302,24 +412,37 @@ def predict_files(paths, cfg, device=None, plain: bool = False):
 
 
 def cmd_predict(args) -> int:
-    """predict_event.m parity: per-file quadratic fits -> next-event time."""
+    """predict_event.m parity: per-file quadratic fits -> next-event time;
+    with ``--png`` the ``predict_event.m:140-150`` plot."""
     from sdr_channelizer_tpu_torch.config import PdwConfig
 
-    if args.png:
-        raise _not_ported("predict --png (the plots of viz/)")
     cfg = PdwConfig.event(max_pulses=args.max_pulses,
                           max_pulse_samples=args.max_pulse_samples)
-    records, _, base_time = predict_files(args.files, cfg, device=args.device)
+    records, pred, base_time = predict_files(args.files, cfg,
+                                             device=args.device)
     next_event = None
-    for path, _, event, nxt in records:
+    all_toa: list = []
+    all_snr: list = []
+    for path, pdws, event, nxt in records:
         if nxt is not None:
             next_event = nxt
+            # the reference plot accumulates the fitted captures' pulse
+            # samples (predict_event.m:146-148)
+            all_toa.extend(np.asarray(pdws["toa"], float).tolist())
+            all_snr.extend(np.asarray(pdws["snr"], float).tolist())
             print(f"{path}: event at +{event:.6f}s, "
                   f"next predicted +{nxt:.6f}s")
         else:
             print(f"{path}: gated out / too few pulses")
     if next_event is not None:
         print(f"Next event: {base_time + next_event:.6f} (epoch)")
+        if args.png:
+            from sdr_channelizer_tpu_torch.viz import event_fit_png
+
+            event_fit_png(args.png, np.asarray(all_toa), np.asarray(all_snr),
+                          event_time=pred.events[-1],
+                          next_event_time=next_event,
+                          fits=np.asarray(pred.fits, float))
     return 0
 
 
@@ -353,6 +476,95 @@ def cmd_track(args) -> int:
         print(json.dumps({"tracker": tracker.counters.snapshot(),
                           "radio": radio.counters.snapshot()}, sort_keys=True))
     return 0
+
+
+def cmd_txrx(args) -> int:
+    """tx_rx_pulses parity: timed pulse bursts through the loopback channel,
+    both sides written as .iq (host only)."""
+    from sdr_channelizer_tpu_torch.capture.txrx import TxRxSpec, run_txrx
+
+    spec = TxRxSpec(
+        sample_rate_sps=args.rate_msps * 1e6,
+        chip_width_sec=args.chip_width_sec,
+        pri_sec=args.pri_sec,
+        duration_sec=args.duration_sec,
+        barker13=args.barker13,
+        frequency_hz=args.freq_mhz * 1e6,
+        delay_samples=args.delay_samples,
+        attenuation_db=args.attenuation_db,
+        noise_std=args.noise_std,
+    )
+    tx_path, rx_path = run_txrx(spec, args.out_dir)
+    print(tx_path)
+    print(rx_path)
+    return 0
+
+
+def cmd_spectrogram(args) -> int:
+    """spectrogram_my_iq.m parity: one STFT power PNG per capture.  Integer
+    payloads go to the device packed (``stft_power_packed``), float
+    containers as complex samples (``stft_power``)."""
+    from sdr_channelizer_tpu_torch.config import SpectrogramConfig
+    from sdr_channelizer_tpu_torch.dsp.spectrogram import (
+        save_png,
+        stft_power,
+        stft_power_packed,
+    )
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.io.convert import load_capture_payload
+
+    cfg = SpectrogramConfig(window_length=args.window)
+    for path in args.files:
+        samples, bit_width, iq, meta = load_capture_payload(path)
+        if samples is not None and samples.dtype in (np.int16, np.int8):
+            samples = np.ascontiguousarray(samples)
+            packed = (samples.view(np.int32) if samples.dtype == np.int16
+                      else samples.view(np.int16)).ravel()
+            power = stft_power_packed(packed, bit_width, cfg=cfg,
+                                      device=args.device)
+        else:
+            if samples is not None:  # a wider integer payload
+                iq = iqpacket.to_complex(samples, bit_width)
+            power = stft_power(iq, cfg=cfg, device=args.device)
+        out = _out_path(path, args.out_dir, "_spectrogram.png")
+        save_png(out, power.cpu().numpy(), float(meta["fs"]),
+                 float(meta.get("fc", 0.0)), cfg=cfg,
+                 title=os.path.basename(path))
+        print(out)
+    return 0
+
+
+def cmd_plot(args) -> int:
+    """plot_my_iq.m parity: magnitude and phase against time, a PNG per
+    capture (host only)."""
+    from sdr_channelizer_tpu_torch.io.convert import load_capture
+    from sdr_channelizer_tpu_torch.viz import plot_iq_png
+
+    for path in args.files:
+        iq, meta = load_capture(path)
+        out = _out_path(path, args.out_dir, "_iq.png")
+        plot_iq_png(out, iq, float(meta["fs"]), title=os.path.basename(path))
+        print(out)
+    return 0
+
+
+def cmd_provision(args) -> int:
+    """loadFpgaA5/loadFpgaA9 parity: bladeRF FPGA bitstream + firmware load
+    via bladeRF-cli (reference component #12)."""
+    from sdr_channelizer_tpu_torch.capture.hardware import (
+        provision_bladerf,
+        provision_bladerf_commands,
+    )
+
+    if args.dry_run:
+        for cmd in provision_bladerf_commands(args.board, args.workarea):
+            print(" ".join(cmd))
+        return 0
+    return provision_bladerf(args.board, args.workarea)
+
+
+def cmd_bench(args) -> int:
+    raise _not_ported("bench (the port's benchmark harness)")
 
 
 def _add_capture_args(p):
@@ -411,6 +623,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_capture_args(p)
     p.set_defaults(fn=cmd_gain_search)
 
+    p = sub.add_parser("convert", help=".iq/.bin -> .npz or .mat")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--mat", action="store_true")
+    p.add_argument("--v73", action="store_true",
+                   help="with --mat: write a v7.3 (HDF5) container like the "
+                        "reference's save -v7.3")
+    p.add_argument("--raw", action="store_true", help="keep integer payload")
+    p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser("channelize", help="polyphase channelize + waterfall")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--bands", type=int, default=None)
+    p.add_argument("--bin-width-hz", type=float, default=1e6)
+    p.add_argument("--taps-per-band", type=int, default=12)
+    p.add_argument("--out", default=None)
+    p.add_argument("--out-dir", default=None)
+    p.add_argument("--png", default=None, const="auto", nargs="?")
+    p.add_argument("--video", default=None, nargs="?", const="auto",
+                   help="assemble the windowed waterfall into an MPEG-4 "
+                        "(channelizer_example.m video parity); optional "
+                        "output path")
+    p.add_argument("--video-fps", type=float, default=20.0)
+    p.add_argument("--frames-dir", default=None,
+                   help="write a waterfall PNG sequence (video parity)")
+    p.add_argument("--frame-window-sec", type=float, default=5e-3)
+    p.add_argument("--frame-limit", type=int, default=None)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_channelize)
+
     p = sub.add_parser("pdw", help="extract pulse descriptor words")
     p.add_argument("files", nargs="+")
     p.add_argument("--channelized", action="store_true")
@@ -421,6 +663,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--max-pulse-samples", type=int, default=4096)
     p.add_argument("--shards", type=int, default=1,
                    help="(not ported yet) multi-device extraction")
+    p.add_argument("--strict-halo", action="store_true",
+                   help="(not ported yet) with --shards: refuse a halo that "
+                        "does not fit the per-shard block")
     p.add_argument("--stream", action="store_true",
                    help="blockwise streaming extraction over contiguous "
                         "multi-file segments (O(block) memory, exact "
@@ -434,13 +679,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="print a structured-counters JSON line (--stream)")
     _add_device_arg(p)
     p.add_argument("--out", default=None)
+    p.add_argument("--png", default=None,
+                   help="also plot frequency and width against TOA")
     p.set_defaults(fn=cmd_pdw)
 
     p = sub.add_parser("predict", help="offline event prediction over captures")
     p.add_argument("files", nargs="+")
     p.add_argument("--max-pulses", type=int, default=512)
     p.add_argument("--max-pulse-samples", type=int, default=65536)
-    p.add_argument("--png", default=None, help="(not ported yet)")
+    p.add_argument("--png", default=None,
+                   help="plot the fitted pulses, the fits and the events")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_predict)
 
@@ -451,6 +699,46 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--scan-curvature", type=float, default=2000.0)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_track)
+
+    p = sub.add_parser("txrx", help="pulsed TX/RX loopback (emulated channel)")
+    p.add_argument("freq_mhz", type=float)
+    p.add_argument("bw_mhz", type=float)
+    p.add_argument("rate_msps", type=float)
+    p.add_argument("gain_db", type=float)
+    p.add_argument("dwell_sec", type=float)
+    p.add_argument("duration_sec", type=float)
+    p.add_argument("chip_width_sec", type=float)
+    p.add_argument("pri_sec", type=float)
+    p.add_argument("--barker13", action="store_true")
+    p.add_argument("--delay-samples", type=int, default=100)
+    p.add_argument("--attenuation-db", type=float, default=20.0)
+    p.add_argument("--noise-std", type=float, default=1e-3)
+    p.add_argument("--out-dir", default=".")
+    p.set_defaults(fn=cmd_txrx)
+
+    p = sub.add_parser("spectrogram", help="STFT power PNG per capture")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--window", type=int, default=768)
+    p.add_argument("--out-dir", default=None)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_spectrogram)
+
+    p = sub.add_parser("plot", help="magnitude/phase PNG per capture")
+    p.add_argument("files", nargs="+")
+    p.add_argument("--out-dir", default=None)
+    p.set_defaults(fn=cmd_plot)
+
+    p = sub.add_parser("provision",
+                       help="bladeRF FPGA/firmware provisioning (loadFpgaA5/A9)")
+    p.add_argument("board", choices=["A5", "A9"])
+    p.add_argument("--workarea", default="~/workarea")
+    p.add_argument("--dry-run", action="store_true",
+                   help="print the bladeRF-cli commands without running them")
+    p.set_defaults(fn=cmd_provision)
+
+    p = sub.add_parser("bench", help="(not ported yet) the benchmark")
+    p.add_argument("bench_args", nargs="*")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,8 +1,9 @@
 """Typed configuration of the port (the JAX package's names and defaults).
 
 The configs the ported slices need: ``ChannelizerConfig``, ``PdwConfig``,
-``EventConfig``, ``CaptureConfig`` and ``GainSearchConfig``
-(``SpectrogramConfig`` waits with the spectrogram).  There are no static-shape knobs:
+``EventConfig``, ``CaptureConfig``, ``GainSearchConfig`` and
+``SpectrogramConfig`` (``ShardingConfig`` and ``PipelineConfig`` wait with
+``parallel/``).  There are no static-shape knobs:
 PyTorch runs eagerly, so ``max_pulses`` / ``max_pulse_samples`` are plain
 capacity bounds of the emitted batch, not compile-time shapes.
 """
@@ -134,3 +135,13 @@ class GainSearchConfig:
 
     saturation_fraction: float = 0.98
     gain_step_db: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectrogramConfig:
+    """STFT configuration matching ``spectrogram_my_iq.m:114``:
+    hamming(768) symmetric window, zero overlap, squared-magnitude power,
+    frequency axis centered on fc."""
+
+    window_length: int = 768
+    overlap: int = 0

@@ -1,4 +1,5 @@
-"""DSP layer: channelizer, PDW extraction and blockwise streaming."""
+"""DSP layer: channelizer, PDW extraction, blockwise streaming and the
+spectrogram (``dsp.spectrogram``)."""
 
 from sdr_channelizer_tpu_torch.dsp.channelizer import (  # noqa: F401
     Channelizer,
@@ -7,6 +8,7 @@ from sdr_channelizer_tpu_torch.dsp.channelizer import (  # noqa: F401
     channelize,
     channelize_planes,
     dft_matrix,
+    resolve_method,
 )
 from sdr_channelizer_tpu_torch.dsp.pdw import (  # noqa: F401
     PdwBatch,

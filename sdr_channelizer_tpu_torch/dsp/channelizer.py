@@ -140,6 +140,18 @@ def fir_branches(frames: torch.Tensor, taps_rev: torch.Tensor,
     return u
 
 
+def resolve_method(method: str, device) -> str:
+    """Pick the channel-extraction form for tensors on ``device``.
+
+    ``"fft"`` -- ``torch.fft.fft`` + ``fftshift``: the oracle, and the form
+    for the CPU.  ``"dft"`` -- the product with the shift-folded DFT matrix,
+    the form of the kernels on a CUDA device.  ``"auto"`` means ``"fft"``
+    on the CPU and ``"dft"`` on a CUDA device."""
+    if method != "auto":
+        return method
+    return "dft" if torch.device(device).type == "cuda" else "fft"
+
+
 def channelize(x, chan: Channelizer, shift: bool = True, method: str = "fft",
                device=None) -> torch.Tensor:
     """Channelize a 1-D complex capture; returns ``(N // M, M)`` complex64.

@@ -21,13 +21,12 @@ the flip kernel in the tail.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from sdr_channelizer_tpu_torch._device import resolve_device
+from sdr_channelizer_tpu_torch._device import resolve_device, to_device
 from sdr_channelizer_tpu_torch.config import PdwConfig
 from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
 from sdr_channelizer_tpu_torch.dsp.channelizer import (
@@ -156,12 +155,6 @@ class ChannelizerPipeline:
                 "torch.backends.cuda.matmul.allow_tf32 was switched on: the "
                 "main path needs full-float32 products")
 
-    def _to_device(self, x) -> torch.Tensor:
-        with warnings.catch_warnings():
-            # a payload read from disk may be read-only; it is never written
-            warnings.simplefilter("ignore", UserWarning)
-            return torch.as_tensor(x).to(self.device)
-
     def forward_packed(
         self, xq, bit_width: int, route: str = "auto", plain: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, PdwBatch]:
@@ -182,7 +175,7 @@ class ChannelizerPipeline:
         route = _check_route(route)
         self._check_products()
         ops = kernels.PLAIN if plain else kernels.KERNELS
-        xq = self._to_device(xq)
+        xq = to_device(xq, self.device)
         stages = {"cm2": ops.channelize, "cm": ops.channelize_cm,
                   "flat": ops.channelize_flat}
         return self._fused_tail(route, lambda stage: stages[stage](
@@ -198,7 +191,7 @@ class ChannelizerPipeline:
         route = _check_route(route)
         self._check_products()
         ops = kernels.PLAIN if plain else kernels.KERNELS
-        xr, xi = self._to_device(xr), self._to_device(xi)
+        xr, xi = to_device(xr, self.device), to_device(xi, self.device)
         stages = {"cm2": ops.channelize_planes, "cm": ops.channelize_cm_planes,
                   "flat": ops.channelize_flat_planes}
         return self._fused_tail(route, lambda stage: stages[stage](

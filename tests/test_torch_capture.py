@@ -301,8 +301,10 @@ def test_cli_predict_matches_jax_predict(tmp_path, capsys):
     for k in g:
         np.testing.assert_allclose(g[k], r[k], rtol=0, atol=2e-6)
     assert abs(g[os.path.basename(files[0])][0] - 0.06) < 0.02
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(argv + ["--device", "cpu", "--png", str(tmp_path / "f.png")])
+    png = tmp_path / "f.png"
+    assert main(argv + ["--device", "cpu", "--png", str(png)]) == 0
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert capsys.readouterr().out == got
 
 
 def test_cli_track_matches_jax_track(capsys):

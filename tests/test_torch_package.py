@@ -42,8 +42,17 @@ def test_fresh_interpreter_imports_no_jax():
         "import sdr_channelizer_tpu_torch.dsp.pdw\n"
         "import sdr_channelizer_tpu_torch.dsp.events\n"
         "import sdr_channelizer_tpu_torch.capture\n"
+        "import sdr_channelizer_tpu_torch.capture.txrx\n"
+        "import sdr_channelizer_tpu_torch.capture.vendor_api\n"
+        "import sdr_channelizer_tpu_torch.dsp.spectrogram\n"
+        "import sdr_channelizer_tpu_torch.io.convert\n"
+        "import sdr_channelizer_tpu_torch.io.native\n"
+        "import sdr_channelizer_tpu_torch.utils\n"
+        "import sdr_channelizer_tpu_torch.utils.profiling\n"
+        "import sdr_channelizer_tpu_torch.viz\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'sdr_channelizer_tpu', 'triton')]\n"
+        "('jax', 'jaxlib', 'sdr_channelizer_tpu', 'triton', 'matplotlib', "
+        "'h5py', 'cv2')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -123,10 +132,11 @@ def test_cli_generate_then_pdw_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["pdw", "x.npz", "--device", "cpu"],
+    ["pdw", "x.iq", "--shards", "2"],
     ["pdw", "x.iq", "--stream", "--shards", "2"],
     ["pdw", "x.iq", "--channelized", "--shards", "2"],
-    ["pdw", "x.npz", "--channelized", "--device", "cpu"],
+    ["bench"],
+    ["pdw", "x.iq", "--strict-halo", "--device", "cpu"],
 ])
 def test_cli_says_what_is_not_ported(argv):
     with pytest.raises(SystemExit) as e:

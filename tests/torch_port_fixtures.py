@@ -1,6 +1,8 @@
 """Shared inputs of the ``test_torch_*`` files: captures made with NumPy
 from a seed, handed to both the JAX package and the PyTorch port."""
 
+import struct
+
 import numpy as np
 
 from sdr_channelizer_tpu.io import iqpacket
@@ -42,3 +44,40 @@ def packed(samples):
     """The (N, 2) payload viewed as one plane of packed (I, Q) pairs."""
     dt = np.int16 if samples.dtype == np.int8 else np.int32
     return np.ascontiguousarray(samples).view(dt).ravel()
+
+
+def png_size(path):
+    """(width, height) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        data = f.read(24)
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    return struct.unpack(">II", data[16:24])
+
+
+def same_value(a, b, key=""):
+    if isinstance(a, str) or isinstance(b, str):
+        assert type(a) is type(b) and a == b, key
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape, key
+    np.testing.assert_array_equal(a, b, err_msg=key)
+
+
+def _same_meta(a, b):
+    if a is None or b is None:
+        assert a is b
+        return
+    assert sorted(a) == sorted(b)
+    for k in a:
+        same_value(a[k], b[k], k)
+
+
+def same_load(got, ref):
+    """Two ``load_capture[_raw]`` results: arrays bit for bit, same dtypes,
+    same metadata."""
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        if isinstance(g, dict) or g is None:
+            _same_meta(g, r)
+        else:
+            same_value(g, r)
