@@ -27,7 +27,17 @@ the CLI to a raw ``.npz``, a raw v5 ``.mat``, a raw v7.3 ``.mat`` and a
 normalised ``.npz``, each through the main path; ``channelize`` on the card,
 B9 once a file; ``waterfall_window_pngs``, B9 once a window; the
 spectrogram of the wideband capture packed at bit width 12, against a
-float64 STFT, timed beside its bound and the cuFFT form); and runs the CLI,
+float64 STFT, timed beside its bound and the cuFFT form), before that the
+sharded path (``sharded``: ``ShardedPipeline.extract_fused`` at meshes (4,
+1) and (2, 2) of four shards on the one card against the single-device
+step, K1 and B5 with band slices bit for bit the full kernel's rows, route
+``"cm"``, wideband at (4, 1), ``pdw --shards 4`` in fresh processes, a
+``--strict-halo`` refusal and two gloo ranks on the card; the sharded
+PDWs are held against every pulse of an unsharded step cut to a shard's
+slots), and where the machine has several cards the same path a card a
+shard, in one process and in one NCCL process a card (``cards``; one line
+that says it was skipped on one card; ``cards_main`` runs it alone); and
+runs the CLI,
 the capture commands and the views included (``convert``, ``pdw`` on
 every container, ``spectrogram``, ``plot``, ``pdw --png``, ``predict
 --png``, ``txrx``, ``provision --dry-run``).  A step that needs
@@ -84,6 +94,7 @@ WIDE_SAMPLES = 16_000_000     # the wideband capture: 0.286 s at 56 Msps
 WIDE_LONG_SAMPLES = 1 << 25   # past 2^24: the blocked wideband route
 WIDE_FS = 56e6
 BIT_WIDTH = 12
+FS_MAIN = M_MAIN * 1e6        # the main captures' rate: 1 MHz a band
 DEVICE = "cuda"
 # event prediction and tracking: 80 ms dwells at 56 Msps, the scanning beam
 # of tools/tpu_tracker_drive.py:71-83 (10 us pulses every 5 ms, scan period
@@ -383,18 +394,36 @@ def window_sort_ms(mag, dph, calls, t_len: int):
     return time_ms(lambda: [torch.sort(x, dim=1) for x in mats])
 
 
+def band_parts(m: int, band):
+    """``w_parts`` of the band slice ``band = (c0, n)`` of the shift-folded
+    DFT matrix, or None for the whole matrix."""
+    from sdr_channelizer_tpu_torch.dsp.channelizer import dft_matrix
+
+    if band is None:
+        return None
+    w = dft_matrix(m)[:, band[0]:band[0] + band[1]]
+    return (np.ascontiguousarray(w.real, np.float32),
+            np.ascontiguousarray(w.imag, np.float32))
+
+
+def band_cols(band):
+    return slice(None) if band is None else slice(band[0], band[0] + band[1])
+
+
 def compare_flat(xq, taps, bit_width, sat_level, got, where: str,
-                 history=None) -> dict:
+                 history=None, band=None) -> dict:
     """B5 against its plain version: magnitude at MAG_TOL, the phase at
     DPH_TOL_DEG (modulo 360) where |y| > 0.01, the mask equal but for samples
-    whose |Re| or |Im| lies within SAT_HOVER of the level."""
+    whose |Re| or |Im| lies within SAT_HOVER of the level.  ``band``: the
+    ``(c0, n)`` band slice both were given."""
     import torch
 
     from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
 
     mag, ph, sat = got
     pm, pp, ps = ck.channelize_streams_packed_plain(
-        xq, taps, bit_width, sat_level, history=history)
+        xq, taps, bit_width, sat_level, history=history,
+        w_parts=band_parts(taps.shape[1], band))
     check(mag.shape == pm.shape == ph.shape == sat.shape,
           f"{where}: stream shapes {tuple(mag.shape)} vs {tuple(pm.shape)}")
     check(bool(torch.isfinite(mag).all() and torch.isfinite(ph).all()),
@@ -407,8 +436,9 @@ def compare_flat(xq, taps, bit_width, sat_level, got, where: str,
           f"{where}: phase off by {ph_err:.3g} deg where |y| > 0.01")
     check(bool(((sat == 0) | (sat == 1)).all()), f"{where}: sat is no mask")
     yr, yi = ck.channelize_planes_plain(xq, taps, bit_width, history=history)
-    hover = (((yr.abs() - sat_level).abs() <= SAT_HOVER)
-             | ((yi.abs() - sat_level).abs() <= SAT_HOVER))
+    cols = band_cols(band)
+    hover = (((yr[:, cols].abs() - sat_level).abs() <= SAT_HOVER)
+             | ((yi[:, cols].abs() - sat_level).abs() <= SAT_HOVER))
     check(bool(((sat == ps) | hover).all()),
           f"{where}: mask differs beyond the hovering samples")
     return {"mag_err": max_abs(mag, pm), "phase_err_deg": ph_err,
@@ -416,11 +446,12 @@ def compare_flat(xq, taps, bit_width, sat_level, got, where: str,
 
 
 def compare_streams(xq, taps, bit_width, sat_level, got, where: str,
-                    history=None) -> dict:
+                    history=None, band=None) -> dict:
     """K1, or its cm form when ``got`` has four streams, against its plain
     version: magnitude and phase difference at the stated tolerances; the
     saturation exactly (as a count), but for samples whose |Re| or |Im| lies
-    within SAT_HOVER of the level, which may flip."""
+    within SAT_HOVER of the level, which may flip.  ``band``: the ``(c0,
+    n)`` band slice K1 and its plain version were given."""
     import torch
 
     from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
@@ -437,7 +468,8 @@ def compare_streams(xq, taps, bit_width, sat_level, got, where: str,
     else:
         mag, dph, satcs = got
         pm, pd, ps = ck.channelize_streams_packed_cm2_plain(
-            xq, taps, bit_width, sat_level, history=history)
+            xq, taps, bit_width, sat_level, history=history,
+            w_parts=band_parts(taps.shape[1], band))
     check(mag.shape == pm.shape == dph.shape == satcs.shape,
           f"{where}: stream shapes {tuple(mag.shape)} vs {tuple(pm.shape)}")
     check(bool(torch.isfinite(mag).all() and torch.isfinite(dph).all()),
@@ -460,8 +492,9 @@ def compare_streams(xq, taps, bit_width, sat_level, got, where: str,
     check(bool((dph[:, -1] == 0).all()), f"{where}: last dph column not zero")
     yr, yi = ck.channelize_planes_plain(xq, taps, bit_width,
                                         history=history)
-    hover = (((yr.abs() - sat_level).abs() <= SAT_HOVER)
-             | ((yi.abs() - sat_level).abs() <= SAT_HOVER)).T
+    cols = band_cols(band)
+    hover = (((yr[:, cols].abs() - sat_level).abs() <= SAT_HOVER)
+             | ((yi[:, cols].abs() - sat_level).abs() <= SAT_HOVER)).T
     allowed = torch.cumsum(hover.to(torch.float32), dim=1)
     sat_err = (satcs - ps).abs()
     check(bool((sat_err <= allowed).all()),
@@ -2646,6 +2679,579 @@ def phase_predict():
     return {"pulse_stats_long_window": launches["pulse_stats_long_window"]}
 
 
+SHARD_DEVICES = 4             # the sharded phase's shards, all on cuda:0
+SHARD_MESHES = ((4, 1), (2, 2))
+SHARDED_COUNTS = {
+    "channelize_streams_packed_cm2": "channelizer_kernel.launches",
+    "noise_floor_cm": "nf_kernel.launches",
+    "latch_cumsums_cm": "latch_kernel.launches",
+    "pulse_stats": "pulse_stats_kernel.launches"}
+SHARDED_CM_COUNTS = {
+    "channelize_streams_packed": "channelizer_kernel.launches_flat",
+    "noise_floor_cm": "nf_kernel.launches",
+    "cm_streams": "transpose_kernel.launches",
+    "latch_cumsums": "latch_kernel.launches_tm",
+    "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
+SHARDED_WIDE_COUNTS = {
+    "noise_floor_cm": "nf_kernel.launches",
+    "cm_streams": "transpose_kernel.launches",
+    "latch_cumsums": "latch_kernel.launches_tm",
+    "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
+
+
+def shard_slots(pdws: dict, slots: int, n_time: int) -> dict:
+    """``pdws`` of the whole capture (at ``sample_start_time`` 0, the main
+    path's 1 MHz frame rate) cut to what a step over ``n_time`` time shards
+    keeps: ``max_pulses`` is a shard's slots a channel, so of each channel
+    in each shard the first ``slots`` pulses by TOA, a pulse in the shard
+    of its first frame (``toa = (i0 + 1) / fs``)."""
+    i0 = np.rint(pdws["toa"] * FS_MAIN / M_MAIN).astype(np.int64) - 1
+    cell = (i0 // (FRAMES_MAIN // n_time)) * M_MAIN + pdws["channel"]
+    keep = np.zeros(len(i0), bool)
+    for c in np.unique(cell):
+        idx = np.nonzero(cell == c)[0]
+        keep[idx[np.argsort(pdws["toa"][idx], kind="stable")[:slots]]] = True
+    return {k: v[keep] for k, v in pdws.items()}
+
+
+def unsharded_reference(pipe, caps) -> dict:
+    """Every pulse of each capture, from the single-device step with slots
+    a channel to spare (doubled from the widest mesh's shards times
+    ``max_pulses`` until no channel fills them: the dense capture fills a
+    channel's 512), which ``shard_slots`` cuts to what a sharded step
+    keeps."""
+    from sdr_channelizer_tpu_torch.models import ChannelizerPipeline
+
+    out = {}
+    for name, samples in caps.items():
+        slots = max(nt for nt, _ in SHARD_MESHES) * pipe.pdw_cfg.max_pulses
+        while True:
+            big = ChannelizerPipeline(pipe.channelizer, dataclasses.replace(
+                pipe.pdw_cfg, max_pulses=slots), pipe.device)
+            out[name] = big.extract_fused(samples, BIT_WIDTH, fs=FS_MAIN)
+            if np.bincount(out[name]["channel"]).max() < slots:
+                break
+            slots *= 2
+    return out
+
+
+def pdws_sharded_agree(a: dict, b: dict, where: str) -> None:
+    """The sharded = single-device invariant: integer fields and ``mag``
+    bit for bit, freq and snr within rtol 1e-9, atol 1e-5 (the bars of
+    ``tests/test_parallel_fused.py``)."""
+    check(len(a["toa"]) == len(b["toa"]),
+          f"{where}: {len(a['toa'])} pulses vs {len(b['toa'])}")
+    oa = np.lexsort((a["channel"], a["toa"]))
+    ob = np.lexsort((b["channel"], b["toa"]))
+    for key in ("toa", "pw", "channel", "sat", "mag"):
+        check(np.array_equal(a[key][oa], b[key][ob], equal_nan=True),
+              f"{where}: {key} is not bit for bit the single-device step's")
+    for key in ("freq", "snr"):
+        check(np.allclose(a[key][oa], b[key][ob], rtol=1e-9, atol=1e-5,
+                          equal_nan=True), f"{where}: {key} differs")
+
+
+def sharded_band_checks(xq, pipe) -> dict:
+    """K1 and B5 with a band slice against their plain versions and, bit
+    for bit, against the full matrix's bands: at the main shape with the
+    halves of M = 64, at M = 20 with slices of 10 (and one of 7 from band
+    3), and with T one frame either side of a tile boundary (7439, 7440,
+    7441 frames, tiles of 15 and 63 frames).  Times K1 and B5 with a half
+    beside the full matrix."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+
+    level = pipe.pdw_cfg.saturation_level
+    taps = pipe.channelizer.taps_rev
+    m, t_len, p = M_MAIN, FRAMES_MAIN, taps.shape[0]
+    out = {"k1": {}, "b5": {}, "cases": []}
+    full = k.channelize_streams_packed_cm2(xq, taps, BIT_WIDTH, level)
+    flat = k.channelize_streams_packed(xq, taps, BIT_WIDTH, level)
+    for band in ((0, m // 2), (m // 2, m // 2)):
+        wp, cols = band_parts(m, band), band_cols(band)
+        got = k.channelize_streams_packed_cm2(xq, taps, BIT_WIDTH, level,
+                                              w_parts=wp)
+        torch.cuda.synchronize()
+        res = compare_streams(xq, taps, BIT_WIDTH, level, got,
+                              f"K1 band {band} main shape", band=band)
+        check(all(same(a[cols], b) for a, b in zip(full, got)),
+              f"K1 band {band} main shape: not the full kernel's rows")
+        out["k1"][f"{band[0]}+{band[1]}"] = res
+        got = k.channelize_streams_packed(xq, taps, BIT_WIDTH, level,
+                                          w_parts=wp)
+        torch.cuda.synchronize()
+        res = compare_flat(xq, taps, BIT_WIDTH, level, got,
+                           f"B5 band {band} main shape", band=band)
+        check(all(same(a[:, cols], b) for a, b in zip(flat, got)),
+              f"B5 band {band} main shape: not the full kernel's columns")
+        out["b5"][f"{band[0]}+{band[1]}"] = res
+        del got
+    del full, flat
+    half = band_parts(m, (m // 2, m // 2))
+    n_w = 4 * p * m + 4 * 4 * m * (m // 2)
+    fir, dft = t_len * 4 * p * m, t_len * 8 * m * (m // 2)
+    t_bytes = (n_bytes_of(xq) + 3 * 4 * (m // 2) * t_len + n_w) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = (fir / FP32_FLOP_PER_S + 3 * dft / TF32_FLOP_PER_S) * 1e3
+    for name, fn in (("k1", k.channelize_streams_packed_cm2),
+                     ("b5", k.channelize_streams_packed)):
+        out[name]["half_ms"] = time_ms(
+            lambda: fn(xq, taps, BIT_WIDTH, level, w_parts=half))
+        out[name]["full_ms"] = time_ms(
+            lambda: fn(xq, taps, BIT_WIDTH, level))
+        out[name]["half_plain_ms"] = time_ms(
+            lambda: getattr(k, fn.__name__ + "_plain")(
+                xq, taps, BIT_WIDTH, level, w_parts=half), reps=3, warmup=1)
+        out[name]["half_bound_ms"] = max(t_bytes, t_ops)
+        out[name]["half_bound_by"] = "bytes" if t_bytes >= t_ops \
+            else "operations"
+        out[name]["shape"] = f"M={m} T={t_len}, bands {m // 2}..{m - 1}"
+
+    dev = xq.device
+    for mm, frames, bands in ((20, 777, ((0, 10), (10, 10), (3, 7))),
+                              (64, 7439, ((32, 32), (5, 13))),
+                              (64, 7440, ((32, 32), (5, 13))),
+                              (64, 7441, ((32, 32), (5, 13)))):
+        ch_taps = Channelizer.create(mm).taps_rev
+        xs = torch.as_tensor(pack(small_capture(mm, frames, 12, seed=mm)),
+                             device=dev)
+        for ft in (None, 15, 63):
+            whole = k.channelize_streams_packed_cm2(xs, ch_taps, 12, level,
+                                                    tile_frames=ft)
+            wflat = k.channelize_streams_packed(
+                xs, ch_taps, 12, level,
+                tile_frames=None if ft is None else ft + 1)
+            for band in bands:
+                where = f"M={mm} T={frames} tile={ft} band={band}"
+                wp, cols = band_parts(mm, band), band_cols(band)
+                got = k.channelize_streams_packed_cm2(
+                    xs, ch_taps, 12, level, tile_frames=ft, w_parts=wp)
+                gflat = k.channelize_streams_packed(
+                    xs, ch_taps, 12, level, w_parts=wp,
+                    tile_frames=None if ft is None else ft + 1)
+                torch.cuda.synchronize()
+                res = compare_streams(xs, ch_taps, 12, level, got,
+                                      "K1 " + where, band=band)
+                check(all(same(a[cols], b) for a, b in zip(whole, got)),
+                      f"K1 {where}: not the full kernel's rows")
+                compare_flat(xs, ch_taps, 12, level, gflat, "B5 " + where,
+                             band=band)
+                check(all(same(a[:, cols], b) for a, b in zip(wflat, gflat)),
+                      f"B5 {where}: not the full kernel's columns")
+                out["cases"].append({"case": where, **res})
+    return out
+
+
+def write_dwells(directory: str, samples: np.ndarray, fs: float,
+                 bit_width: int, n_files: int = 4) -> None:
+    """The (N, 2) integer payload ``samples`` as ``n_files`` contiguous
+    ``.iq`` dwell files."""
+    from sdr_channelizer_tpu_torch.io import iqpacket
+
+    chunk = len(samples) // n_files
+    for k in range(n_files):
+        part = samples[k * chunk:(k + 1) * chunk]
+        iqpacket.write_iq(os.path.join(directory, f"d{k}.iq"),
+                          iqpacket.IqHeader(
+                              frequency_hz=0, bandwidth_hz=fs,
+                              sample_rate_sps=fs, rx_gain_db=0,
+                              num_samples=len(part), bit_width=bit_width,
+                              sample_start_time=100.0 + k * chunk / fs),
+                          part)
+
+
+def rows_agree(ranks: list, one: dict, where: str) -> None:
+    """The ranks' rows of ``multihost.run_capture_set``, stitched in rank
+    order, bit for bit the one-process rows (the floor whole on every
+    rank)."""
+    for key, want in one.items():
+        if key.endswith(("span", "step_ms")):
+            continue
+        got = ranks[0][key] if key.endswith("nf") else np.concatenate(
+            [z[key] for z in ranks])
+        check(np.array_equal(got, want, equal_nan=True),
+              f"{where}: {key} differs from one process")
+
+
+def run_module_cli(argv, timeout: float = 600):
+    """``python -m sdr_channelizer_tpu_torch <argv>`` in a fresh process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run([sys.executable, "-m", "sdr_channelizer_tpu_torch",
+                           *argv], cwd=here, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def phase_sharded(pipe, caps, rows):
+    """This slice's path, ``parallel``: ``ShardedPipeline.extract_fused`` on
+    the dense and sparse captures at meshes (4, 1) and (2, 2) of four shards
+    on one card, held against the single-device step (launches counted: K1
+    and K3 once a shard, K2 once a mesh column); K1's and B5's band slices
+    (``sharded_band_checks``); route ``"cm"`` at (2, 2) on the sparse
+    capture (B5 with its slice); wideband 16,000,000 samples at (4, 1)
+    against ``WidebandPdwPipeline.extract``; ``pdw --shards 4`` through the
+    CLI on the card, channelized and wideband, and a ``--strict-halo``
+    refusal; two ranks on one card over gloo (the two-process test's
+    worker) against the one-process run.  Returns the launches of the
+    sharded cm2 steps."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.dsp.pdw import finalize_pdws
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.models import WidebandPdwPipeline
+    from sdr_channelizer_tpu_torch.parallel import ShardedPipeline, make_mesh
+    from sdr_channelizer_tpu_torch.parallel.pipeline import (
+        merge_block_batches, sharded_extract_pdws)
+
+    dev = torch.device(DEVICE, 0)
+    devices = [dev] * SHARD_DEVICES
+    n, fs = M_MAIN * FRAMES_MAIN, FS_MAIN
+    profile = "--profile" in sys.argv[1:]
+    single = {name: pipe.extract_fused(s, BIT_WIDTH, fs=fs)
+              for name, s in caps.items()}
+    whole = unsharded_reference(pipe, caps)
+    out = {"devices": [str(d) for d in devices]}
+    total = {name: 0 for name in SHARDED_COUNTS}
+
+    for nt, nc in SHARD_MESHES:
+        key = f"{nt}x{nc}"
+        spipe = ShardedPipeline(make_mesh(nt, nc, devices=devices),
+                                pipe.channelizer, pipe.pdw_cfg)
+        res = {}
+        for name, samples in caps.items():
+            reset_counts(SHARDED_COUNTS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = spipe.extract_fused(samples, BIT_WIDTH, fs=fs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(SHARDED_COUNTS)
+            peak = torch.cuda.max_memory_allocated()
+            check(counts["channelize_streams_packed_cm2"] == nt * nc
+                  and counts["latch_cumsums_cm"] == nt * nc
+                  and counts["noise_floor_cm"] == nc
+                  and counts["pulse_stats"] > 0,
+                  f"sharded {key} {name}: launch counts {counts}")
+            for c in total:
+                total[c] += counts[c]
+            pdws_sharded_agree(got, shard_slots(
+                whole[name], pipe.pdw_cfg.max_pulses, nt),
+                f"sharded {key} {name}")
+            capped = sum(int(c) == pipe.pdw_cfg.max_pulses
+                         for c in np.bincount(single[name]["channel"]))
+            xq = torch.as_tensor(pack(samples), device=dev)
+            step = time_ms(lambda: spipe.step_packed(xq, BIT_WIDTH), reps=5)
+            one = time_ms(lambda: pipe.forward_packed(xq, BIT_WIDTH), reps=5)
+            res[name] = {"pulses": len(got["toa"]),
+                         "compared_pulses": len(got["toa"]),
+                         "unsharded_pulses": len(whole[name]["toa"]),
+                         "single_device_pulses": len(single[name]["toa"]),
+                         "channels_at_the_slot_cap": capped,
+                         "extract_fused_s": wall,
+                         "launches": counts, "peak_memory_bytes": peak,
+                         "step_ms": step, "single_device_step_ms": one,
+                         "msamples_per_s": n / step / 1e3}
+            if profile:
+                prof = device_times(lambda: spipe.step_packed(xq, BIT_WIDTH),
+                                    steps=5)
+                busy = sum(r["ms_per_step"] for r in prof)
+                res[name].update(device_busy_ms=busy,
+                                 idle_share=max(0.0, 1.0 - busy / step),
+                                 top_kernels=prof[:8])
+            del xq
+        # the floor's gather: each column's owned columns into one buffer
+        t_loc, m_loc = FRAMES_MAIN // nt, M_MAIN // nc
+        parts = [[torch.rand((m_loc, t_loc + HALO_FRAMES), device=dev)
+                  for _ in range(nt)] for _ in range(nc)]
+        res["gather_ms"] = time_ms(lambda: [
+            torch.cat([p[:, :t_loc] for p in col], dim=1) for col in parts])
+        res["gather_bound_ms"] = 2 * 4 * M_MAIN * FRAMES_MAIN \
+            / HBM_BYTES_PER_S * 1e3
+        del parts
+        out[key] = res
+
+    xq = torch.as_tensor(pack(caps["dense"]), device=dev)
+    bands = sharded_band_checks(xq, pipe)
+    del xq
+    out["band_slices"] = {k_: v for k_, v in bands.items() if k_ != "cases"}
+    out["band_slice_cases"] = len(bands["cases"])
+
+    # route cm at (2, 2) on the sparse capture: B5 with its band slice
+    spipe = ShardedPipeline(make_mesh(2, 2, devices=devices),
+                            pipe.channelizer, pipe.pdw_cfg)
+    xq = torch.as_tensor(pack(caps["sparse"]), device=dev)
+    reset_counts(SHARDED_CM_COUNTS)
+    _, batch = spipe.step_packed(xq, BIT_WIDTH, route="cm")
+    torch.cuda.synchronize()
+    counts = read_counts(SHARDED_CM_COUNTS)
+    check(counts["channelize_streams_packed"] == 4
+          and counts["cm_streams"] == 4 and counts["latch_cumsums"] == 4
+          and counts["noise_floor_cm"] == 2
+          and counts["pulse_stats_dense"] > 0,
+          f"sharded route cm: launch counts {counts}")
+    got = spipe._finalize_merged(batch, FRAMES_MAIN // 2, fs, 0.0, 0.0)
+    _, _, ref = pipe.forward_packed(xq, BIT_WIDTH, route="flat")
+    pdws_sharded_agree(got, pipe._finalize(ref, fs, 0.0, 0.0),
+                       "sharded route cm (2, 2) sparse")
+    out["route_cm_2x2_sparse"] = {
+        "pulses": len(got["toa"]), "launches": counts,
+        "step_ms": time_ms(lambda: spipe.step_packed(xq, BIT_WIDTH,
+                                                     route="cm"), reps=5),
+        "single_device_flat_step_ms": time_ms(
+            lambda: pipe.forward_packed(xq, BIT_WIDTH, route="flat"),
+            reps=5)}
+    del xq, batch
+
+    # wideband, 16,000,000 samples at (4, 1)
+    cfg = PdwConfig.wideband(max_pulses=512, max_pulse_samples=4096)
+    wpipe = WidebandPdwPipeline.from_reference(dataclasses.asdict(cfg),
+                                               DEVICE)
+    spec, iq = wideband_capture(WIDE_SAMPLES, 1e-3, 1234, seed=3)
+    ref = wpipe.extract(iq, fs=WIDE_FS, sample_start_time=100.0)
+    mesh = make_mesh(4, 1, devices=devices)
+    x = torch.as_tensor(iq, device=dev)
+    reset_counts(SHARDED_WIDE_COUNTS)
+    batch, block = sharded_extract_pdws(x, cfg, mesh)
+    torch.cuda.synchronize()
+    counts = read_counts(SHARDED_WIDE_COUNTS)
+    check(counts["noise_floor_cm"] == 1 and counts["cm_streams"] == 4
+          and counts["latch_cumsums"] == 4
+          and counts["pulse_stats_dense"] > 0,
+          f"sharded wideband: launch counts {counts}")
+    got = finalize_pdws(merge_block_batches(batch, block), fs=WIDE_FS,
+                        sample_start_time=100.0)
+    check(len(got["toa"]) > 200, "sharded wideband: too few pulses")
+    pdws_sharded_agree(got, ref, "sharded wideband (4, 1)")
+    out["wideband_4x1"] = {
+        "samples": WIDE_SAMPLES, "pulses": len(got["toa"]),
+        "launches": counts,
+        "step_ms": time_ms(lambda: sharded_extract_pdws(x, cfg, mesh),
+                           reps=3, warmup=1),
+        "single_device_step_ms": time_ms(lambda: wpipe.forward(x), reps=3,
+                                         warmup=1)}
+    del x, batch
+
+    # the CLI on the card, in fresh processes
+    with tempfile.TemporaryDirectory() as tmp:
+        def write(name, samples, rate):
+            path = os.path.join(tmp, name)
+            iqpacket.write_iq(path, iqpacket.IqHeader(
+                frequency_hz=0.0, bandwidth_hz=rate, sample_rate_sps=rate,
+                rx_gain_db=0, num_samples=len(samples), bit_width=BIT_WIDTH,
+                sample_start_time=0.0), samples)
+            return path
+
+        sparse = write("sparse.iq", caps["sparse"], fs)
+        wide_q = quantize(iq)
+        wide = write("wide.iq", wide_q, WIDE_FS)
+        cli = {}
+        a = os.path.join(tmp, "a.npz")
+        r = run_module_cli(["pdw", sparse, "--channelized", "--shards", "4",
+                            "--max-pulses", "512", "--max-pulse-samples",
+                            "1024", "--out", a])
+        check(r.returncode == 0 and "(4 shards)" in r.stdout,
+              f"cli pdw --channelized --shards 4: rc {r.returncode} "
+              f"{r.stderr[-400:]}")
+        pdws_sharded_agree(dict(np.load(a)), shard_slots(
+            whole["sparse"], pipe.pdw_cfg.max_pulses, 4),
+                           "cli pdw --channelized --shards 4")
+        cli["channelized_pulses"] = len(np.load(a)["toa"])
+        b = os.path.join(tmp, "b.npz")
+        r = run_module_cli(["pdw", wide, "--shards", "4", "--max-pulses",
+                            "512", "--max-pulse-samples", "4096", "--out", b])
+        check(r.returncode == 0, f"cli pdw --shards 4: rc {r.returncode} "
+                                 f"{r.stderr[-400:]}")
+        wref = wpipe.extract(iqpacket.to_complex(wide_q, BIT_WIDTH),
+                             fs=WIDE_FS)
+        pdws_sharded_agree(dict(np.load(b)), wref, "cli pdw --shards 4")
+        cli["wideband_pulses"] = len(np.load(b)["toa"])
+        r = run_module_cli(["pdw", sparse, "--channelized", "--shards", "4",
+                            "--strict-halo", "--max-pulse-samples", "100000",
+                            "--out", os.path.join(tmp, "c.npz")])
+        check(r.returncode != 0 and "halo" in r.stderr
+              and not os.path.exists(os.path.join(tmp, "c.npz")),
+              f"cli --strict-halo did not refuse: rc {r.returncode}")
+        cli["strict_halo_refused"] = True
+        out["cli"] = cli
+
+    # two ranks on one card over gloo, the exchanges staged through the
+    # host: the small capture of tests/test_torch_multihost.py
+    from sdr_channelizer_tpu_torch.parallel import multihost
+    from sdr_channelizer_tpu_torch.signal.synth import (PulseTrainSpec,
+                                                         pulse_train)
+
+    spec = PulseTrainSpec(sample_rate_sps=8e6, duration_sec=8e-3,
+                          frequency_hz=1.9e6, pulse_width_sec=80e-6,
+                          pri_sec=310e-6, start_index=333, noise_std=2e-3)
+    job = {"channels": 8, "pdw": dataclasses.asdict(PdwConfig.channelized(
+        max_pulses=32, max_pulse_samples=64)), "halo_frames": 64,
+        "halo_mode": "strict",
+        "runs": [{"name": "", "mesh": [8, 1], "step": "step"},
+                 {"name": "cm2_", "mesh": [4, 2], "step": "packed",
+                  "route": "cm2"}]}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dwells(tmp, iqpacket.from_complex(pulse_train(spec, seed=11),
+                                                16), 8e6, 16)
+        t0 = time.perf_counter()
+        ranks = multihost.launch_ranks(tmp, job, [[dev] * 4] * 2,
+                                       backend="gloo", timeout=300)
+        wall = time.perf_counter() - t0
+        one = multihost.run_capture_set(tmp, [dev] * 8, job)
+        rows_agree(ranks, one, "two ranks on one card")
+        out["two_ranks"] = {"device": str(dev), "backend": "gloo",
+                            "wall_s": wall, "equal_to_one_process": True,
+                            "pulses": int(one["count"].sum()),
+                            "cm2_pulses": int(one["cm2_count"].sum())}
+
+    # the kernels line: the sharded steps' launches, and the band slice's
+    # readings on K1's and B5's rows
+    sharded = dict(total, channelize_streams_packed=out[
+        "route_cm_2x2_sparse"]["launches"]["channelize_streams_packed"])
+    for r in rows:
+        if r["name"] in sharded:
+            r["sharded_launches"] = sharded[r["name"]]
+        key = {"channelize_streams_packed_cm2": "k1",
+               "channelize_streams_packed": "b5"}.get(r["name"])
+        if key:
+            b = bands[key]
+            r["w_parts"] = {"ms": b["half_ms"], "plain_ms": b["half_plain_ms"],
+                            "bound_ms": b["half_bound_ms"],
+                            "bound_by": b["half_bound_by"],
+                            "full_ms": b["full_ms"], "shape": b["shape"]}
+    emit("sharded", **out)
+    return total
+
+
+def host_ms(fn, devices, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` over ``reps`` runs after one, every
+    device synchronised (one card's events do not see the others)."""
+    import torch
+
+    def sync():
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+
+    fn()
+    sync()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def phase_cards(pipe, caps):
+    """The sharded path where each shard has a card of its own; on a
+    machine with one card, a line that says so.  One process with a mesh
+    over every card, (n, 1) and with four (2, 2): ``extract_fused`` of the
+    sparse and dense captures against the unsharded step
+    (``shard_slots``), its step's time beside the single-device step's.
+    Then one process a card joined by NCCL (the FIR tails, the halo heads,
+    the latch transfers and the floor's inputs cross cards through it),
+    each reading its own span of the sparse capture written as four dwell
+    files: the packed step at (n, 1) bit for bit the one-process rows."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.parallel import (ShardedPipeline,
+                                                    make_mesh, multihost)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        emit("cards", skipped=f"needs at least two CUDA devices, have {n}")
+        return
+    devices = [torch.device(DEVICE, i) for i in range(n)]
+    whole = unsharded_reference(pipe, caps)
+    out = {"devices": [str(d) for d in devices]}
+    for nt, nc in [(n, 1)] + ([(2, 2)] if n == 4 else []):
+        spipe = ShardedPipeline(make_mesh(nt, nc, devices=devices),
+                                pipe.channelizer, pipe.pdw_cfg)
+        res = {}
+        for name, samples in caps.items():
+            reset_counts(SHARDED_COUNTS)
+            got = spipe.extract_fused(samples, BIT_WIDTH, fs=FS_MAIN)
+            counts = read_counts(SHARDED_COUNTS)
+            check(counts["channelize_streams_packed_cm2"] == nt * nc
+                  and counts["latch_cumsums_cm"] == nt * nc,
+                  f"{nt}x{nc} on {n} cards {name}: launch counts {counts}")
+            pdws_sharded_agree(got, shard_slots(
+                whole[name], pipe.pdw_cfg.max_pulses, nt),
+                f"{nt}x{nc} on {n} cards, {name}")
+            xq = torch.as_tensor(pack(samples), device=devices[0])
+            res[name] = {
+                "pulses": len(got["toa"]), "launches": counts,
+                "step_ms": host_ms(lambda: spipe.step_packed(xq, BIT_WIDTH),
+                                   devices),
+                "single_device_step_ms": host_ms(
+                    lambda: pipe.forward_packed(xq, BIT_WIDTH), devices[:1])}
+            del xq
+        out[f"{nt}x{nc}"] = res
+
+    job = {"channels": M_MAIN, "pdw": dataclasses.asdict(pipe.pdw_cfg),
+           "reps": 5, "runs": [{"name": "", "mesh": [n, 1],
+                                "step": "packed"}]}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dwells(tmp, caps["sparse"], FS_MAIN, BIT_WIDTH)
+        t0 = time.perf_counter()
+        ranks = multihost.launch_ranks(tmp, job, [[d] for d in devices],
+                                       backend="nccl", timeout=600)
+        wall = time.perf_counter() - t0
+        one = multihost.run_capture_set(tmp, devices, job)
+    rows_agree(ranks, one, f"{n} NCCL processes")
+    out["processes"] = {"world": n, "backend": "nccl", "wall_s": wall,
+                        "equal_to_one_process": True,
+                        "pulses": int(one["count"].sum()),
+                        "step_ms": [float(z["step_ms"]) for z in ranks],
+                        "one_process_step_ms": float(one["step_ms"])}
+    emit("cards", **out)
+
+
+def main_pipe():
+    """The main path's pipeline: M = 64, ``PdwConfig.channelized(512,
+    1024)``, on the card."""
+    from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.models import ChannelizerPipeline
+
+    return ChannelizerPipeline.create(
+        M_MAIN, device=DEVICE,
+        pdw_cfg=PdwConfig.channelized(max_pulses=512, max_pulse_samples=1024))
+
+
+def main_captures() -> dict:
+    """The sparse and dense captures of M_MAIN * FRAMES_MAIN samples."""
+    n = M_MAIN * FRAMES_MAIN
+    return {"sparse": quantize(make_capture(n, M_MAIN, sparse=True)),
+            "dense": quantize(make_capture(n, M_MAIN, sparse=False))}
+
+
+def cards_main() -> int:
+    """The multi-card phase alone, for a machine with several cards:
+    ``python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.cards_main())'``.
+    Exits 2 with fewer than two CUDA devices."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke: the cards phase needs at least two CUDA devices",
+              file=sys.stderr)
+        return 2
+    try:
+        card = phase_env()
+        phase_build()
+        phase_cards(main_pipe(), main_captures())
+    except SmokeFailure as e:
+        print(json.dumps({"ok": False, "error": str(e)}), flush=True)
+        return 1
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def phase_track():
     """The closed loop on the card: ``EventTracker`` on
     ``DeviceDwellEmitter`` in the dense scene, 20 dwells of 80 ms at 56
@@ -3362,25 +3968,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device: this script has no CPU path",
               file=sys.stderr)
         return 2
-
-    from sdr_channelizer_tpu_torch.config import PdwConfig
-    from sdr_channelizer_tpu_torch.models import ChannelizerPipeline
+    # outside a checkout this fails here, before any line is printed
+    import sdr_channelizer_tpu_torch  # noqa: F401
 
     try:
         card = phase_env()
         phase_build()
-        pipe = ChannelizerPipeline.create(
-            M_MAIN, device=DEVICE,
-            pdw_cfg=PdwConfig.channelized(max_pulses=512,
-                                          max_pulse_samples=1024))
+        pipe = main_pipe()
         check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
         small = (kernels_small() + [{"case": "K4 / B10 crafted runs",
                                      **kernels_small_pulse_stats()}]
                  + kernels_small_latch_nf()
                  + kernels_small_flip_flat_complex())
-        n = M_MAIN * FRAMES_MAIN
-        caps = {"sparse": quantize(make_capture(n, M_MAIN, sparse=True)),
-                "dense": quantize(make_capture(n, M_MAIN, sparse=False))}
+        caps = main_captures()
         xq = torch.as_tensor(pack(caps["dense"]), device=pipe.device)
         rows = kernels_main_shape(xq, pipe)
         kernels_flat_complex_main_shape(xq, caps["dense"], pipe, rows)
@@ -3402,6 +4002,8 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             phase_profile(pipe, caps, rows)
             phase_profile_streaming(pipe, caps)
+        phase_sharded(pipe, caps, rows)
+        phase_cards(pipe, caps)
         skipped = phase_ingest_views(pipe, caps)
         skipped += phase_cli()
         # the views' libraries are optional: what was left out, and why

@@ -2,10 +2,10 @@
 
 A second package beside the JAX one, with the same sub-package layout so a
 reader finds each counterpart (``config``, ``ops``, ``dsp``, ``models``,
-``io``, ``signal``, ``capture``, ``utils``, ``viz``, ``cli``).  Plain tensor
-code is PyTorch; every kernel the JAX package wrote in Pallas is a CUDA C++
-kernel written by hand for Hopper (``ops/cuda``, sources in
-``ops/cuda/csrc``), built with ``nvcc`` at first use.  The package imports
+``parallel``, ``io``, ``signal``, ``capture``, ``utils``, ``viz``,
+``cli``).  Plain tensor code is PyTorch; every kernel the JAX package wrote
+in Pallas is a CUDA C++ kernel written by hand for Hopper (``ops/cuda``,
+sources in ``ops/cuda/csrc``), built with ``nvcc`` at first use.  The package imports
 ``torch``, ``numpy`` and ``scipy`` only: never ``jax`` and nothing of the JAX
 package; ``matplotlib``, ``h5py`` and ``cv2`` are imported by the functions
 that use them.
@@ -17,8 +17,9 @@ route (``extract``), wideband extraction, blockwise streaming over
 multi-file captures with checkpoint/resume (``dsp.streaming``), events and
 the closed-loop tracker, every capture container (``io.convert``,
 ``io.native``), the spectrogram, the plots and waterfall video, TX/RX
-loopback, the radio backends and stage profiling, and every CLI command of
-the JAX package but ``pdw --shards`` and ``bench``.
+loopback, the radio backends and stage profiling, time x channel sharding
+over a device mesh (``parallel``, ``pdw --shards``), and every CLI command
+of the JAX package but ``bench``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no card present the default raises.

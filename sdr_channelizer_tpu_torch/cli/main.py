@@ -7,8 +7,10 @@ capture takes ``.iq``, ``.npz``, ``.mat`` (v5 and v7.3) and legacy ``.bin``
 files; the commands that compute run on the CUDA device unless ``--device
 cpu`` is given.
 
-Multi-device extraction (``pdw --shards``, ``--strict-halo``) and ``bench``
-are not ported yet and exit with an error that says so.
+``pdw --shards N`` extracts over N time shards (``parallel``): on the first
+N CUDA devices, or all N on one card where the machine has fewer than N
+(the JAX package refuses that case), or on the CPU with ``--device cpu``.
+``bench`` is not ported yet and exits with an error that says so.
 """
 
 from __future__ import annotations
@@ -319,6 +321,61 @@ def _pdw_stream(args) -> int:
     return _save_pdws(args, all_pdws)
 
 
+def _shard_mesh(args):
+    """``--shards N``: N time shards on the first N CUDA devices, or all N
+    on the one card when the machine has fewer than N, or on the CPU with
+    ``--device cpu``."""
+    import torch
+
+    from sdr_channelizer_tpu_torch import resolve_device
+    from sdr_channelizer_tpu_torch.parallel import make_mesh
+
+    n = args.shards
+    dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index in (None, 0) \
+            and torch.cuda.device_count() >= n:
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [dev] * n
+    return make_mesh(n_time=n, n_chan=1, devices=devices)
+
+
+def _pdw_sharded_channelized(args, raw, bw, iq, m, cfg, fs, fc, t0) -> dict:
+    """Channelized extraction over ``--shards`` time shards: the fused
+    sharded step (the packed payload where there is one, else float32
+    planes), the capture cut to whole frames of every shard."""
+    from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
+    from sdr_channelizer_tpu_torch.parallel import ShardedPipeline
+
+    spipe = ShardedPipeline(
+        _shard_mesh(args), Channelizer.create(m), cfg,
+        halo_mode="strict" if args.strict_halo else "warn")
+    k = args.shards * m
+    if raw is not None:
+        samples = raw[: len(raw) // k * k]
+    else:
+        n = len(iq) // k * k
+        samples = np.stack([iq[:n].real, iq[:n].imag], -1).astype(np.float32)
+    return spipe.extract_fused(samples, bit_width=bw, fs=fs, fc=fc,
+                               sample_start_time=t0)
+
+
+def _pdw_sharded_wideband(args, x, cfg, fs, fc, t0) -> dict:
+    """Wideband extraction over ``--shards`` time shards, the capture cut
+    to a multiple of the shard count."""
+    from sdr_channelizer_tpu_torch.dsp.pdw import finalize_pdws
+    from sdr_channelizer_tpu_torch.parallel.pipeline import (
+        merge_block_batches,
+        sharded_extract_pdws,
+    )
+
+    n = len(x) // args.shards * args.shards
+    batch, block_len = sharded_extract_pdws(x[:n], cfg, _shard_mesh(args),
+                                            strict_halo=args.strict_halo)
+    return finalize_pdws(merge_block_batches(batch, block_len), fs=fs, fc=fc,
+                         sample_start_time=t0)
+
+
 def cmd_pdw(args) -> int:
     """create_pdws.m parity (wideband) and, with ``--channelized``,
     create_pdws_channelized.m parity, for every capture container: an
@@ -334,10 +391,6 @@ def cmd_pdw(args) -> int:
         WidebandPdwPipeline,
     )
 
-    if args.shards > 1:
-        raise _not_ported("pdw --shards (multi-device extraction)")
-    if args.strict_halo:
-        raise _not_ported("pdw --strict-halo (multi-device extraction)")
     if args.stream:
         return _pdw_stream(args)
 
@@ -345,8 +398,9 @@ def cmd_pdw(args) -> int:
     for path in args.files:
         raw, bw, iq, meta = load_capture_payload(path)
         if raw is not None and raw.dtype not in (np.int16, np.int8):
-            # a wider integer payload: dequantize on the host
-            raw, iq = None, iqpacket.to_complex(raw, bw)
+            # a wider integer payload: dequantize on the host, after which
+            # there is no bit width left to scale by
+            raw, iq, bw = None, iqpacket.to_complex(raw, bw), 0
         fs = float(meta["fs"])
         fc = float(meta.get("fc", 0.0))
         t0 = float(meta.get("sampleStartTime", 0.0))
@@ -356,9 +410,12 @@ def cmd_pdw(args) -> int:
             if args.threshold_db is not None:
                 cfg = dataclasses.replace(cfg,
                                           snr_threshold_db=args.threshold_db)
-            pipe = WidebandPdwPipeline(pdw_cfg=cfg, device=args.device)
             x = iqpacket.to_complex(raw, bw) if raw is not None else iq
-            pdws = pipe.extract(x, fs=fs, fc=fc, sample_start_time=t0)
+            if args.shards > 1:
+                pdws = _pdw_sharded_wideband(args, x, cfg, fs, fc, t0)
+            else:
+                pipe = WidebandPdwPipeline(pdw_cfg=cfg, device=args.device)
+                pdws = pipe.extract(x, fs=fs, fc=fc, sample_start_time=t0)
             all_pdws.append(pdws)
             print(f"{path}: {len(pdws['toa'])} pulses")
             continue
@@ -367,6 +424,12 @@ def cmd_pdw(args) -> int:
                                     max_pulse_samples=args.max_pulse_samples)
         if args.threshold_db is not None:
             cfg = dataclasses.replace(cfg, snr_threshold_db=args.threshold_db)
+        if args.shards > 1:
+            pdws = _pdw_sharded_channelized(args, raw, bw, iq, m, cfg, fs, fc,
+                                            t0)
+            all_pdws.append(pdws)
+            print(f"{path}: {len(pdws['toa'])} pulses ({args.shards} shards)")
+            continue
         pipe = ChannelizerPipeline.create(m, pdw_cfg=cfg, device=args.device)
         if raw is not None:
             n = len(raw) // m * m
@@ -662,10 +725,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--max-pulses", type=int, default=512)
     p.add_argument("--max-pulse-samples", type=int, default=4096)
     p.add_argument("--shards", type=int, default=1,
-                   help="(not ported yet) multi-device extraction")
+                   help="extract over N time shards: on the first N CUDA "
+                        "devices, or all N on one card when the machine has "
+                        "fewer (the JAX package refuses that), or on the "
+                        "CPU with --device cpu; ignored with --stream.  "
+                        "The shards' kernels are launched from one Python "
+                        "loop, so at a capture that fits one card this is "
+                        "slower than --shards 1")
     p.add_argument("--strict-halo", action="store_true",
-                   help="(not ported yet) with --shards: refuse a halo that "
-                        "does not fit the per-shard block")
+                   help="with --shards: refuse a halo that does not fit the "
+                        "per-shard block")
     p.add_argument("--stream", action="store_true",
                    help="blockwise streaming extraction over contiguous "
                         "multi-file segments (O(block) memory, exact "

@@ -1,9 +1,9 @@
 """Typed configuration of the port (the JAX package's names and defaults).
 
-The configs the ported slices need: ``ChannelizerConfig``, ``PdwConfig``,
-``EventConfig``, ``CaptureConfig``, ``GainSearchConfig`` and
-``SpectrogramConfig`` (``ShardingConfig`` and ``PipelineConfig`` wait with
-``parallel/``).  There are no static-shape knobs:
+Every config of the JAX package: ``ChannelizerConfig``, ``PdwConfig``,
+``EventConfig``, ``CaptureConfig``, ``GainSearchConfig``,
+``SpectrogramConfig``, ``ShardingConfig`` and ``PipelineConfig``.  There are
+no static-shape knobs:
 PyTorch runs eagerly, so ``max_pulses`` / ``max_pulse_samples`` are plain
 capacity bounds of the emitted batch, not compile-time shapes.
 """
@@ -145,3 +145,38 @@ class SpectrogramConfig:
 
     window_length: int = 768
     overlap: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """2-D (time-blocks x channels) mesh layout for long captures
+    (``parallel``).
+
+    The sample axis is sharded into time blocks with overlap-save FIR halos
+    exchanged between neighbours, the channel axis is sharded for PDW
+    extraction, and boundary-straddling pulses are emitted once, by the
+    shard that owns their leading edge (each shard reads
+    ``pdw_halo_frames`` frames past its right boundary).
+
+    Kept for the JAX package's names and defaults: no code of either
+    package reads it.  ``ShardedPipeline`` takes its halo from its own
+    ``halo_frames`` (default ``PdwConfig.max_pulse_samples``).
+    """
+
+    time_axis: str = "time"
+    channel_axis: str = "chan"
+    # Right-halo length (decimated frames) for cross-boundary pulse capture;
+    # must be >= PdwConfig.max_pulse_samples for exact boundary stitching.
+    pdw_halo_frames: int = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Top-level config for the channelize -> PDW -> predict pipeline.
+    Kept for the JAX package's names and defaults: no code of either
+    package reads it."""
+
+    channelizer: ChannelizerConfig
+    pdw: PdwConfig = dataclasses.field(default_factory=PdwConfig.channelized)
+    events: EventConfig = dataclasses.field(default_factory=EventConfig)
+    sharding: ShardingConfig = dataclasses.field(default_factory=ShardingConfig)

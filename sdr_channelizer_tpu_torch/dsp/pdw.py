@@ -247,12 +247,23 @@ def block_transfer(mag: torch.Tensor, noise_floor: torch.Tensor,
                    trailing_threshold_db: Optional[float]):
     """Whole-block latch transfer function ``(f(0), f(1))`` over the last
     dimension of ``mag``; ``noise_floor`` broadcasts against it.  Composing
-    these across blocks gives each block's ``entry_active``."""
+    these across blocks gives each block's ``entry_active``.
+
+    The last column of :func:`hysteresis_fns`, by reductions instead of
+    scans: the block ends in the state of its last set or reset (or its
+    start state, if it has none), flipped once per toggle after it."""
     lead = noise_floor * 10.0 ** (snr_threshold_db / 10.0)
     trail = lead if trailing_threshold_db is None else \
         noise_floor * 10.0 ** (trailing_threshold_db / 10.0)
-    a, b = hysteresis_fns(mag >= lead, mag <= trail)
-    return a[..., -1], b[..., -1]
+    ge_lead, le_trail = mag >= lead, mag <= trail
+    pos = torch.arange(mag.shape[-1], dtype=torch.int32, device=mag.device)
+    last = torch.where(ge_lead ^ le_trail, pos,
+                       torch.full_like(pos, -1)).amax(-1)
+    seen = last >= 0
+    picked = torch.gather(ge_lead, -1,
+                          last.clamp(min=0).to(torch.int64)[..., None])[..., 0]
+    odd = (ge_lead & le_trail & (pos > last[..., None])).sum(-1) % 2 == 1
+    return (seen & picked) ^ odd, (~seen | picked) ^ odd
 
 
 def batch_to_host(batch: PdwBatch) -> PdwBatch:

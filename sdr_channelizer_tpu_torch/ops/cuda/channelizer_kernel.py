@@ -14,6 +14,13 @@ adds the time-major magnitude that the streamed noise floor and the
 time-major latch read; the flat form gives the time-major magnitude, phase in
 degrees and 0/1 mask; the complex form gives the bands themselves.
 
+The stream forms (cm2 and flat) also take ``w_parts=(wr, wi)``: an (M,
+n_bands) column slice of the shift-folded DFT matrix, a band slice as the
+channel-sharded pipeline (``parallel``) hands each mesh column.  The kernel
+then contracts over all M branches and emits those n_bands bands only, each
+the same bits as the full matrix's band on the card (the split of a W entry
+and the order of the k-steps do not change).
+
 The capture comes as packed pairs (``*_packed*``: one int32 holding an int16
 (I, Q) pair, or one int16 holding an int8 pair: the recorder's bytes as they
 are on disk) or as two planes (int16, dequantized by ``bit_width``, or
@@ -185,23 +192,47 @@ def _complex_source(x, taps_rev) -> _Source:
                    None, 2, 1.0, p, m, x.shape[0] // m)
 
 
-def _planes_plain(src: _Source, taps_rev, shift: bool = True
+def band_slice(w_parts, m: int):
+    """``w_parts`` as two contiguous (M, n_bands) float32 host arrays, or
+    None for the full matrix."""
+    if w_parts is None:
+        return None
+    wr, wi = (np.ascontiguousarray(
+        w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else w,
+        np.float32) for w in w_parts)
+    if wr.ndim != 2 or wr.shape != wi.shape or wr.shape[0] != m \
+            or wr.shape[1] < 1:
+        raise ValueError(f"w_parts must be two (M, n_bands) = ({m}, n) "
+                         f"arrays, got {wr.shape} and {wi.shape}")
+    return wr, wi
+
+
+def _w_planes(m: int, shift: bool, w_parts):
+    """The (M, n_bands) real and imaginary DFT planes: the slice given, or
+    the whole shift-folded matrix."""
+    from sdr_channelizer_tpu_torch.dsp.channelizer import dft_matrix
+
+    if w_parts is not None:
+        return w_parts
+    w = dft_matrix(m, shifted=shift)
+    return (np.ascontiguousarray(w.real, np.float32),
+            np.ascontiguousarray(w.imag, np.float32))
+
+
+def _planes_plain(src: _Source, taps_rev, shift: bool = True, w_parts=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (T, M) real and imaginary planes of the channelizer output in
-    plain PyTorch (matmul in full float32)."""
-    from sdr_channelizer_tpu_torch.dsp.channelizer import (
-        dft_matrix,
-        fir_branches,
-    )
+    """The (T, n_bands) real and imaginary planes of the channelizer
+    output in plain PyTorch (matmul in full float32); ``w_parts`` as
+    returned by :func:`band_slice`."""
+    from sdr_channelizer_tpu_torch.dsp.channelizer import fir_branches
 
     dev = src.device
     vi, vq, hi, hq = src.floats()
     taps = torch.as_tensor(np.asarray(taps_rev, np.float32), device=dev)
     ur = fir_branches(vi, taps, hi)
     ui = fir_branches(vq, taps, hq)
-    w = dft_matrix(src.m, shifted=shift)
-    wr = torch.as_tensor(np.ascontiguousarray(w.real), device=dev)
-    wi = torch.as_tensor(np.ascontiguousarray(w.imag), device=dev)
+    wr, wi = (torch.as_tensor(w, device=dev)
+              for w in _w_planes(src.m, shift, w_parts))
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the plain version needs full-float32 products: "
                            "torch.backends.cuda.matmul.allow_tf32 is on")
@@ -220,19 +251,19 @@ def channelize_planes_plain(xq: torch.Tensor, taps_rev, bit_width: int,
                          taps_rev, shift)
 
 
-def _flat_plain(src, taps_rev, sat_level, shift):
-    """Time-major (T, M) ``(mag, phase_deg, sat)``: the flat form."""
-    yr, yi = _planes_plain(src, taps_rev, shift)
+def _flat_plain(src, taps_rev, sat_level, shift, w_parts=None):
+    """Time-major (T, n_bands) ``(mag, phase_deg, sat)``: the flat form."""
+    yr, yi = _planes_plain(src, taps_rev, shift, w_parts)
     mag = torch.sqrt(yr * yr + yi * yi)
     ph = atan2_cephes(yi, yr) * float(np.float32(180.0 / np.pi))
     sat = ((yr.abs() >= sat_level) | (yi.abs() >= sat_level)).to(torch.float32)
     return mag, ph, sat
 
 
-def _cm_plain(src, taps_rev, sat_level, shift):
-    """Time-major (T, M) ``(mag, dph, sat)`` shared by the cm and cm2 plain
-    forms."""
-    mag, ph, sat = _flat_plain(src, taps_rev, sat_level, shift)
+def _cm_plain(src, taps_rev, sat_level, shift, w_parts=None):
+    """Time-major (T, n_bands) ``(mag, dph, sat)`` shared by the cm and cm2
+    plain forms."""
+    mag, ph, sat = _flat_plain(src, taps_rev, sat_level, shift, w_parts)
     t_len, m = mag.shape
     d = ph[1:] - ph[:-1]
     d = torch.where(d < -180.0, d + 360.0, d)
@@ -241,8 +272,8 @@ def _cm_plain(src, taps_rev, sat_level, shift):
     return mag, dph, sat
 
 
-def _cm2_outputs_plain(src, taps_rev, sat_level, shift):
-    mag, dph, sat = _cm_plain(src, taps_rev, sat_level, shift)
+def _cm2_outputs_plain(src, taps_rev, sat_level, shift, w_parts=None):
+    mag, dph, sat = _cm_plain(src, taps_rev, sat_level, shift, w_parts)
     return (mag.T.contiguous(), dph.T.contiguous(),
             torch.cumsum(sat, dim=0).T.contiguous())
 
@@ -259,11 +290,12 @@ def channelize_streams_packed_cm2_plain(
     sat_level: float = 0.9999,
     shift: bool = True,
     history: Optional[torch.Tensor] = None,
+    w_parts=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`channelize_streams_packed_cm2`."""
     return _cm2_outputs_plain(
         _packed_source(xq, taps_rev, bit_width, history), taps_rev, sat_level,
-        shift)
+        shift, band_slice(w_parts, taps_rev.shape[1]))
 
 
 def channelize_streams_packed_cm_plain(
@@ -287,18 +319,21 @@ def channelize_streams_packed_plain(
     sat_level: float = 0.9999,
     shift: bool = True,
     history: Optional[torch.Tensor] = None,
+    w_parts=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`channelize_streams_packed`."""
     return _flat_plain(_packed_source(xq, taps_rev, bit_width, history),
-                       taps_rev, sat_level, shift)
+                       taps_rev, sat_level, shift,
+                       band_slice(w_parts, taps_rev.shape[1]))
 
 
 def channelize_streams_plain(xr, xi, taps_rev, bit_width: int = 0,
                              sat_level: float = 0.9999, shift: bool = True,
-                             history=None):
+                             history=None, w_parts=None):
     """Plain PyTorch version of :func:`channelize_streams`."""
     return _flat_plain(_planes_source(xr, xi, taps_rev, bit_width, history),
-                       taps_rev, sat_level, shift)
+                       taps_rev, sat_level, shift,
+                       band_slice(w_parts, taps_rev.shape[1]))
 
 
 def channelize_streams_cm_plain(xr, xi, taps_rev, bit_width: int = 0,
@@ -312,11 +347,11 @@ def channelize_streams_cm_plain(xr, xi, taps_rev, bit_width: int = 0,
 
 def channelize_streams_cm2_plain(xr, xi, taps_rev, bit_width: int = 0,
                                  sat_level: float = 0.9999, shift: bool = True,
-                                 history=None):
+                                 history=None, w_parts=None):
     """Plain PyTorch version of :func:`channelize_streams_cm2`."""
     return _cm2_outputs_plain(
         _planes_source(xr, xi, taps_rev, bit_width, history), taps_rev,
-        sat_level, shift)
+        sat_level, shift, band_slice(w_parts, taps_rev.shape[1]))
 
 
 def channelize_complex_plain(x: torch.Tensor, taps_rev,
@@ -342,28 +377,31 @@ def tf32_rna(a: np.ndarray) -> np.ndarray:
     return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
 
 
-def dft_fragments(m: int, shift: bool = True) -> np.ndarray:
+def dft_fragments(m: int, shift: bool = True, w_parts=None) -> np.ndarray:
     """The DFT planes split for the kernel's three TF32 products, in the
-    order of its B fragments: ``(NT, KS, 32, 8)`` float32 with NT = KS = M
-    rounded up to 8, over 8.  Block ``[n, k]`` is the 8 x 8 tile of ``W``
+    order of its B fragments: ``(NT, KS, 32, 8)`` float32 with KS = M
+    rounded up to 8, over 8, and NT = KS, or with a band slice ``w_parts``
+    (as :func:`band_slice` returns it) its n_bands rounded up to 8, over 8:
+    the slice's entries split as the full matrix's, over the same k-steps.
+    Block ``[n, k]`` is the 8 x 8 tile of ``W``
     for channels ``8n ..`` and branches ``8k ..``; lane ``l`` holds, for
     channel ``8n + l // 4`` and branches ``c0 = 8k + l % 4`` and ``c0 + 4``:
     ``wr`` hi at both, ``wr`` lo at both, ``wi`` hi at both, ``wi`` lo at
     both, where ``hi = tf32_rna(w)`` and ``lo = tf32_rna(w - hi)``.  Pad rows
     and columns are zero."""
-    from sdr_channelizer_tpu_torch.dsp.channelizer import dft_matrix
-
-    w = dft_matrix(m, shifted=shift)
     kp = (m + 7) // 8 * 8
+    parts = _w_planes(m, shift, w_parts)
+    n_bands = parts[0].shape[1]
+    np_ = (n_bands + 7) // 8 * 8
     planes = []
-    for part in (w.real, w.imag):
-        full = np.zeros((kp, kp), np.float32)   # [branch, channel]
-        full[:m, :m] = part
+    for part in parts:
+        full = np.zeros((kp, np_), np.float32)   # [branch, channel]
+        full[:m, :n_bands] = part
         hi = tf32_rna(full)
         planes += [hi, tf32_rna(full - hi)]
     wr_hi, wr_lo, wi_hi, wi_lo = planes
     lane = np.arange(32)
-    n = np.arange(kp // 8)[:, None, None] * 8 + (lane >> 2)[None, None, :]
+    n = np.arange(np_ // 8)[:, None, None] * 8 + (lane >> 2)[None, None, :]
     k0 = np.arange(kp // 8)[None, :, None] * 8 + (lane & 3)[None, None, :]
     k1 = k0 + 4
     return np.ascontiguousarray(np.stack(
@@ -372,12 +410,14 @@ def dft_fragments(m: int, shift: bool = True) -> np.ndarray:
         np.float32)
 
 
-def _device_weights(taps_rev, shift: bool, dev):
+def _device_weights(taps_rev, shift: bool, dev, w_parts=None):
     """The taps (columns padded with zeros to a multiple of 4) and the split
-    DFT planes in fragment order on the device, kept from call to call:
-    set-up, not part of a step."""
+    DFT planes (or band slice) in fragment order on the device, kept from
+    call to call: set-up, not part of a step."""
     taps = np.ascontiguousarray(taps_rev, np.float32)
-    key = (dev, shift, taps.shape, taps.tobytes())
+    key = (dev, shift, taps.shape, taps.tobytes(),
+           None if w_parts is None else
+           (w_parts[0].shape, w_parts[0].tobytes(), w_parts[1].tobytes()))
     hit = _weights.get(key)
     if hit is None:
         p, m = taps.shape
@@ -386,7 +426,7 @@ def _device_weights(taps_rev, shift: bool, dev):
         if len(_weights) >= 16:
             _weights.clear()
         hit = tuple(torch.as_tensor(a, device=dev)
-                    for a in (padded, dft_fragments(m, shift)))
+                    for a in (padded, dft_fragments(m, shift, w_parts)))
         _weights[key] = hit
     return hit
 
@@ -398,16 +438,17 @@ def _library():
     if not getattr(lib, "_sdr_typed", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sdr_channelize.argtypes = (
-            [ci, ci] + [vp] * 4 + [ci] + [vp] * 9 + [ci] * 6 + [cf, cf, vp])
+            [ci, ci] + [vp] * 4 + [ci] + [vp] * 9 + [ci] * 7 + [cf, cf, vp])
         lib.sdr_channelize.restype = ci
-        lib.sdr_channelize_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.sdr_channelize_plan.argtypes = [ci, ci, ci, ci,
+                                            ctypes.POINTER(ci)]
         lib.sdr_channelize_plan.restype = ctypes.c_longlong
         lib._sdr_typed = True
     return lib
 
 
-def _tile(src: _Source, tile_frames: Optional[int], mode: int
-          ) -> Tuple[int, int, int]:
+def _tile(src: _Source, tile_frames: Optional[int], mode: int,
+          n_bands: int) -> Tuple[int, int, int]:
     """``(frames a tile, n-tiles, k-steps of a chunk of W)``.  A tile has a
     multiple of 16 rows: its frames, plus the look-ahead frame in the cm2
     and cm modes.  The caller's tile length, checked, or the plan that
@@ -419,7 +460,7 @@ def _tile(src: _Source, tile_frames: Optional[int], mode: int
     rows = 0 if tile_frames is None else tile_frames + ahead
     plan = (ctypes.c_int * 3)()
     if (tile_frames is None or rows > 0) and _library().sdr_channelize_plan(
-            src.m, src.p, rows, plan) > 0:
+            src.m, n_bands, src.p, rows, plan) > 0:
         return plan[0] - ahead, plan[1], plan[2]
     if tile_frames is not None:
         raise ValueError(
@@ -430,17 +471,23 @@ def _tile(src: _Source, tile_frames: Optional[int], mode: int
         f"not fit one block's shared memory")
 
 
+def _n_bands(src: _Source, w_parts) -> int:
+    return src.m if w_parts is None else w_parts[0].shape[1]
+
+
 def _launch(mode: int, src: _Source, taps_rev, shift, tile_frames, outs,
-            sat_level: float = 0.0, tile_tot=None) -> None:
+            sat_level: float = 0.0, tile_tot=None, w_parts=None) -> None:
     """Launch the kernel in ``mode`` on ``src`` with the tiles
-    ``_tile(src, tile_frames, mode)`` gives.  ``outs``: the six output
-    tensors in the kernel's order (time-major first, then channel-major),
-    None where the mode writes none; ``tile_tot``: a callable of the tile
-    length giving the cm2 form's (M, tiles) int32 scratch."""
+    ``_tile(src, tile_frames, mode, n_bands)`` gives.  ``outs``: the six
+    output tensors in the kernel's order (time-major first, then
+    channel-major), None where the mode writes none; ``tile_tot``: a
+    callable of the tile length giving the cm2 form's (n_bands, tiles) int32
+    scratch; ``w_parts``: a band slice as :func:`band_slice` returns it."""
     p, m, t_len = src.p, src.m, src.t_len
+    n_bands = _n_bands(src, w_parts)
     dev = src.device
-    ft, nct, kcs = _tile(src, tile_frames, mode)
-    taps_d, w_d = _device_weights(taps_rev, shift, dev)
+    ft, nct, kcs = _tile(src, tile_frames, mode, n_bands)
+    taps_d, w_d = _device_weights(taps_rev, shift, dev, w_parts)
     tot = None if tile_tot is None else tile_tot(ft)
 
     def ptr(t):
@@ -450,26 +497,28 @@ def _launch(mode: int, src: _Source, taps_rev, shift, tile_frames, outs,
         code = _library().sdr_channelize(
             mode, src.ingest, ptr(src.x0), ptr(src.x1), ptr(src.h0),
             ptr(src.h1), src.stride, taps_d.data_ptr(), w_d.data_ptr(),
-            *(ptr(o) for o in outs), ptr(tot), m, p, t_len, ft, nct, kcs,
+            *(ptr(o) for o in outs), ptr(tot), m, n_bands, p, t_len, ft, nct,
+            kcs,
             src.scale, float(sat_level),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(code, f"sdr_channelize (mode {mode})")
 
 
-def _run_cm2(src, taps_rev, sat_level, shift, tile_frames):
+def _run_cm2(src, taps_rev, sat_level, shift, tile_frames, w_parts=None):
     global launches
     if src.t_len >= 1 << 24:
         raise ValueError("satcs_cm counts are float32: t_len must be < 2^24")
     dev = src.device
-    mag = torch.empty((src.m, src.t_len), dtype=torch.float32, device=dev)
+    n_bands = _n_bands(src, w_parts)
+    mag = torch.empty((n_bands, src.t_len), dtype=torch.float32, device=dev)
     dph = torch.empty_like(mag)
     satcs = torch.empty_like(mag)
     if src.t_len == 0:
         return mag, dph, satcs
     _launch(_MODE_CM2, src, taps_rev, shift, tile_frames,
             (None, None, None, mag, dph, satcs), sat_level,
-            lambda ft: torch.empty((src.m, (src.t_len + ft - 1) // ft),
-                                   dtype=torch.int32, device=dev))
+            lambda ft: torch.empty((n_bands, (src.t_len + ft - 1) // ft),
+                                   dtype=torch.int32, device=dev), w_parts)
     launches += 1
     return mag, dph, satcs
 
@@ -489,16 +538,16 @@ def _run_cm(src, taps_rev, sat_level, shift, tile_frames):
     return mag_tm, mag, dph, sat
 
 
-def _run_flat(src, taps_rev, sat_level, shift, tile_frames):
+def _run_flat(src, taps_rev, sat_level, shift, tile_frames, w_parts=None):
     global launches_flat
-    mag = torch.empty((src.t_len, src.m), dtype=torch.float32,
-                      device=src.device)
+    mag = torch.empty((src.t_len, _n_bands(src, w_parts)),
+                      dtype=torch.float32, device=src.device)
     ph = torch.empty_like(mag)
     sat = torch.empty_like(mag)
     if src.t_len == 0:
         return mag, ph, sat
     _launch(_MODE_FLAT, src, taps_rev, shift, tile_frames,
-            (mag, ph, sat, None, None, None), sat_level)
+            (mag, ph, sat, None, None, None), sat_level, w_parts=w_parts)
     launches_flat += 1
     return mag, ph, sat
 
@@ -523,6 +572,7 @@ def channelize_streams_packed_cm2(
     shift: bool = True,
     tile_frames: Optional[int] = None,
     history: Optional[torch.Tensor] = None,
+    w_parts=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed ingest -> ``(mag_cm, dph_cm, satcs_cm)``, each (M, t_len) f32.
 
@@ -544,11 +594,15 @@ def channelize_streams_packed_cm2(
     keeps float32 accuracy (rtol = atol = 1e-5 against the plain version).
     ``tile_frames``: frames a tile, such that they and the look-ahead frame
     make a multiple of 16 rows (default: chosen by shared memory).
+    ``w_parts``: ``(wr, wi)``, an (M, n_bands) column slice of the
+    shift-folded DFT matrix (``shift`` is then not read); the streams have
+    n_bands rows, each the full matrix's band bit for bit on the card.
     """
     src = _packed_source(xq, taps_rev, bit_width, history)
+    w_parts = band_slice(w_parts, src.m)
     if not xq.is_cuda:
-        return _cm2_outputs_plain(src, taps_rev, sat_level, shift)
-    return _run_cm2(src, taps_rev, sat_level, shift, tile_frames)
+        return _cm2_outputs_plain(src, taps_rev, sat_level, shift, w_parts)
+    return _run_cm2(src, taps_rev, sat_level, shift, tile_frames, w_parts)
 
 
 def channelize_streams_packed_cm(
@@ -583,6 +637,7 @@ def channelize_streams_packed(
     shift: bool = True,
     tile_frames: Optional[int] = None,
     history: Optional[torch.Tensor] = None,
+    w_parts=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed ingest -> time-major ``(mag, phase_deg, sat)``, each
     (t_len, M) f32: the flat form.
@@ -592,12 +647,14 @@ def channelize_streams_packed(
     degrees (the Cephes polynomial of :func:`atan2_cephes`), not its
     difference; ``sat`` the 0/1 mask of samples with ``|Re| >= sat_level`` or
     ``|Im| >= sat_level``.  Arguments as
-    :func:`channelize_streams_packed_cm2`.
+    :func:`channelize_streams_packed_cm2`; with ``w_parts`` the streams
+    have n_bands columns.
     """
     src = _packed_source(xq, taps_rev, bit_width, history)
+    w_parts = band_slice(w_parts, src.m)
     if not xq.is_cuda:
-        return _flat_plain(src, taps_rev, sat_level, shift)
-    return _run_flat(src, taps_rev, sat_level, shift, tile_frames)
+        return _flat_plain(src, taps_rev, sat_level, shift, w_parts)
+    return _run_flat(src, taps_rev, sat_level, shift, tile_frames, w_parts)
 
 
 def channelize_streams(
@@ -609,17 +666,20 @@ def channelize_streams(
     shift: bool = True,
     tile_frames: Optional[int] = None,
     history: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    w_parts=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Planes ingest of :func:`channelize_streams_packed`.
 
     ``xr``, ``xi``: 1-D planes, int16 raw payloads (``bit_width`` set, for
     the dequantization by ``2^-(bit_width-1)``) or float32 already
     normalized (``bit_width=0``).  ``history``: the ``(hist_r, hist_i)``
-    pair of (P-1, M) frames before the block, in the planes' dtype."""
+    pair of (P-1, M) frames before the block, in the planes' dtype.
+    ``w_parts`` as in :func:`channelize_streams_packed_cm2`."""
     src = _planes_source(xr, xi, taps_rev, bit_width, history)
+    w_parts = band_slice(w_parts, src.m)
     if not xr.is_cuda:
-        return _flat_plain(src, taps_rev, sat_level, shift)
-    return _run_flat(src, taps_rev, sat_level, shift, tile_frames)
+        return _flat_plain(src, taps_rev, sat_level, shift, w_parts)
+    return _run_flat(src, taps_rev, sat_level, shift, tile_frames, w_parts)
 
 
 def channelize_streams_cm(
@@ -649,13 +709,15 @@ def channelize_streams_cm2(
     shift: bool = True,
     tile_frames: Optional[int] = None,
     history: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    w_parts=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Planes ingest of :func:`channelize_streams_packed_cm2`; planes and
-    ``history`` as :func:`channelize_streams`."""
+    """Planes ingest of :func:`channelize_streams_packed_cm2`; planes,
+    ``history`` and ``w_parts`` as there and in :func:`channelize_streams`."""
     src = _planes_source(xr, xi, taps_rev, bit_width, history)
+    w_parts = band_slice(w_parts, src.m)
     if not xr.is_cuda:
-        return _cm2_outputs_plain(src, taps_rev, sat_level, shift)
-    return _run_cm2(src, taps_rev, sat_level, shift, tile_frames)
+        return _cm2_outputs_plain(src, taps_rev, sat_level, shift, w_parts)
+    return _run_cm2(src, taps_rev, sat_level, shift, tile_frames, w_parts)
 
 
 def channelize_complex(

@@ -1,4 +1,6 @@
 // Fused channelizer: capture -> detection streams, or the complex bands.
+// The bands emitted may be all M, or N of them: a column slice of the DFT
+// (a band slice), as the channel-sharded pipeline hands each mesh column.
 //
 // Replaces the TPU kernels `_streams_kernel` in its cm2, cm and flat modes
 // and `_kernel` (sdr_channelizer_tpu/ops/pallas/channelizer_kernel.py,
@@ -58,6 +60,15 @@
 //      chip_smoke.py's tile-boundary cases, not a guarantee of the design;
 //      another architecture or toolkit must run those cases again.  A warp
 //      owns one m-tile x two n-tiles of a chunk.
+//      A band slice.  W is then the (M, N) column slice the wrapper is given,
+//      split and laid out the same way: NT = N / 8 n-tiles (rounded up) over
+//      the KS = M / 8 k-steps (rounded up) of the full contraction, the k
+//      order unchanged.  Each emitted band sums the same products of the
+//      same split W entries in the same order as in the full kernel; that
+//      its bits are the full kernel's row, whatever column of an n-tile it
+//      lands in, needs the tensor core to sum every column of an m16n8k8 in
+//      the same order too: the same property observed on sm_90, and checked
+//      by chip_smoke.py with slices that start on and off a multiple of 8.
 //   4. Per chunk of channels the accumulators become |y| (sqrtf), the phase
 //      (Cephes atan2 polynomial, as the TPU kernel) and the saturation flag,
 //      in shared memory channel-major (over X, dead by then); then the
@@ -211,7 +222,7 @@ struct Plan {
   int R;         // rows a tile, a multiple of 16
   int MX;        // X row stride: M rounded up to 4
   int KP;        // the mma's K: M rounded up to 8
-  int NT, KS;    // n-tiles (channels / 8) and k-steps (KP / 8)
+  int NT, KS;    // n-tiles (emitted bands N / 8, up) and k-steps (KP / 8)
   int SU;        // U row stride, KP + 4: conflict-free fragment loads
   int PS;        // staging row stride (channel-major), R + 1
   int nct, kcs;  // a chunk of W: n-tiles x k-steps
@@ -222,13 +233,13 @@ struct Plan {
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-__host__ __device__ inline Plan make_plan(int M, int P, int R, int nct,
-                                          int kcs) {
+__host__ __device__ inline Plan make_plan(int M, int N, int P, int R,
+                                          int nct, int kcs) {
   Plan p;
   p.R = R;
   p.MX = (M + 3) / 4 * 4;
   p.KP = (M + 7) / 8 * 8;
-  p.NT = p.KP / 8;
+  p.NT = (N + 7) / 8;
   p.KS = p.KP / 8;
   p.SU = p.KP + 4;
   p.PS = R + 1;
@@ -244,9 +255,9 @@ __host__ __device__ inline Plan make_plan(int M, int P, int R, int nct,
 
 // The plan for R rows within `cap` bytes: all of W resident, or with
 // `chunks` the largest chunk of it that fits.  bytes < 0: none fits.
-inline Plan plan_for(int M, int P, int R, long long cap, int chunks) {
-  const int KP = (M + 7) / 8 * 8, NT = KP / 8, KS = KP / 8, MT = R / 16;
-  Plan p = make_plan(M, P, R, NT, KS);
+inline Plan plan_for(int M, int N, int P, int R, long long cap, int chunks) {
+  const int NT = (N + 7) / 8, KS = (M + 7) / 8, MT = R / 16;
+  Plan p = make_plan(M, N, P, R, NT, KS);
   // a warp holds the accumulators of one unit (m-tile x two n-tiles)
   const int units = kWarps;
   if (p.bytes <= cap && MT * ceil_div(NT, 2) <= units) return p;
@@ -256,7 +267,7 @@ inline Plan plan_for(int M, int P, int R, long long cap, int chunks) {
   for (; nct >= 1; nct /= 2) {
     const int k_max = kWChunkBlocks / nct > 1 ? kWChunkBlocks / nct : 1;
     for (int kcs = KS < k_max ? KS : k_max; kcs >= 1; kcs /= 2) {
-      p = make_plan(M, P, R, nct, kcs);
+      p = make_plan(M, N, P, R, nct, kcs);
       if (MT * ceil_div(nct, 2) <= units && p.bytes <= cap) return p;
     }
   }
@@ -303,14 +314,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 channelize_kernel(const In in, const int vec,
                   const float* __restrict__ taps,    // (P, MX), pad zero
                   const float* __restrict__ wfrag,   // (NT, KS, 32, 8)
-                  float* __restrict__ tm0,           // (T, M)
+                  float* __restrict__ tm0,           // (T, N)
                   float* __restrict__ tm1,
                   float* __restrict__ tm2,
-                  float* __restrict__ mag_cm,        // (M, T)
+                  float* __restrict__ mag_cm,        // (N, T)
                   float* __restrict__ dph_cm,
                   float* __restrict__ sat_out,
-                  int* __restrict__ tile_tot,        // (M, n_tiles)
-                  const Plan pl, int M, int P, int T, int FT, int n_tiles,
+                  int* __restrict__ tile_tot,        // (N, n_tiles)
+                  const Plan pl, int M, int N, int P, int T, int FT,
+                  int n_tiles,
                   float scale, float sat_level) {
   constexpr bool kCmOut = kMode == kCm2 || kMode == kCm;  // look-ahead too
   extern __shared__ __align__(16) float smem[];
@@ -510,7 +522,7 @@ channelize_kernel(const In in, const int vec,
       }
 
       // the chunk's channels [kb, kb + nk): |y|, phase, flag to shared
-      const int kb = nc * pl.nct * 8, nk = min(pl.nct * 8, M - kb);
+      const int kb = nc * pl.nct * 8, nk = min(pl.nct * 8, N - kb);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -538,7 +550,7 @@ channelize_kernel(const In in, const int vec,
         const int n_t = min(FT, T - t0);
         for (int i = tid; i < n_t * nk; i += kThreads) {
           const int t = i / nk, kl = i - t * nk;
-          const size_t g = (size_t)(t0 + t) * M + kb + kl;
+          const size_t g = (size_t)(t0 + t) * N + kb + kl;
           if (kMode == kComplex) {
             reinterpret_cast<float2*>(tm0)[g] =
                 make_float2(mag_s[kl * PS + t], ph_s[kl * PS + t]);
@@ -616,7 +628,7 @@ scan_tiles_kernel(int* __restrict__ tile_tot, int n_tiles) {
 constexpr int kAddCols = 1024;
 
 __global__ void add_offsets_kernel(float* __restrict__ satcs_cm,
-                                   const int* __restrict__ offs, int M, int T,
+                                   const int* __restrict__ offs, int T,
                                    int FT) {
   const int k = blockIdx.y;
   for (int t = blockIdx.x * kAddCols + threadIdx.x;
@@ -632,7 +644,7 @@ struct Args {
   const float* wfrag;
   float* out[6];  // tm0, tm1, tm2, mag_cm, dph_cm, sat_out
   int* tile_tot;
-  int M, P, T, FT;
+  int M, N, P, T, FT;
   Plan plan;
   float scale, sat_level;
   cudaStream_t stream;
@@ -673,16 +685,16 @@ int launch(const In& in, const Args& a) {
   const int grid = min(n_tiles, resident[dev]);
   kernel<<<grid, kThreads, pl.bytes, a.stream>>>(
       in, a.vec, a.taps, a.wfrag, a.out[0], a.out[1], a.out[2], a.out[3],
-      a.out[4], a.out[5], a.tile_tot, pl, a.M, a.P, a.T, a.FT, n_tiles,
+      a.out[4], a.out[5], a.tile_tot, pl, a.M, a.N, a.P, a.T, a.FT, n_tiles,
       a.scale, a.sat_level);
   err = cudaGetLastError();
   if (err != cudaSuccess || kMode != kCm2) return (int)err;
-  scan_tiles_kernel<<<a.M, kScanThreads, 0, a.stream>>>(a.tile_tot, n_tiles);
+  scan_tiles_kernel<<<a.N, kScanThreads, 0, a.stream>>>(a.tile_tot, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid2((a.T + kAddCols - 1) / kAddCols, a.M);
-  add_offsets_kernel<<<grid2, 256, 0, a.stream>>>(a.out[5], a.tile_tot, a.M,
-                                                  a.T, a.FT);
+  dim3 grid2((a.T + kAddCols - 1) / kAddCols, a.N);
+  add_offsets_kernel<<<grid2, 256, 0, a.stream>>>(a.out[5], a.tile_tot, a.T,
+                                                  a.FT);
   return (int)cudaGetLastError();
 }
 
@@ -704,20 +716,21 @@ bool aligned(const void* p, int bytes) {
 
 // The plan of a block for tiles of R rows (FT frames, plus one in the cm2
 // and cm modes), R a positive multiple of 16, or with R = 0 the most rows
-// of kTileRows that fit.  Preferred in turn: W resident with room for two
+// of kTileRows that fit, for M branches and N emitted bands.  Preferred in turn: W resident with room for two
 // blocks a multiprocessor, W resident in one block's most, then W staged a
 // chunk at a time within each.  Returns the bytes of shared memory, or -1
 // if nothing fits; plan[0..2]: R, and the n-tiles and k-steps of a chunk,
 // for sdr_channelize.
-extern "C" long long sdr_channelize_plan(int M, int P, int R, int* plan) {
-  if (M <= 0 || P <= 0 || R < 0 || R % 16) return -1;
+extern "C" long long sdr_channelize_plan(int M, int N, int P, int R,
+                                         int* plan) {
+  if (M <= 0 || N <= 0 || P <= 0 || R < 0 || R % 16) return -1;
   const long long caps[2] = {kSmemTarget, kSmemMax};
   const int n_rows = R ? 1 : sizeof(kTileRows) / sizeof(kTileRows[0]);
   for (int chunks = 0; chunks < 2; ++chunks)
     for (int c = 0; c < 2; ++c)
       for (int i = 0; i < n_rows; ++i) {
         const int r = R ? R : kTileRows[i];
-        const Plan p = plan_for(M, P, r, caps[c], chunks);
+        const Plan p = plan_for(M, N, P, r, caps[c], chunks);
         if (p.bytes > 0) {
           plan[0] = r;
           plan[1] = p.nct;
@@ -734,11 +747,12 @@ extern "C" long long sdr_channelize_plan(int M, int P, int R, int* plan) {
 // planes; a plane's sample g is its element g * stride.  h0 (and h1 for
 // planes): the (P-1, M) samples that precede the block, dense, or null for
 // zeros.  taps: (P, MX) float32, MX = M rounded up to 4, the pad columns
-// zero.  wfrag: the split DFT planes in fragment order, (NT, KS, 32, 8)
-// float32 (see the wrapper).  out0..out5: time-major (T, M) |y| (cm, flat)
-// or interleaved y (complex); time-major phase and mask (flat);
-// channel-major (M, T) |y|, phase difference and saturation count or mask
-// (cm2, cm); unused ones may be null.  FT: frames a tile; R = FT + 1 in the
+// zero.  N: the bands emitted, M or a band slice's width.  wfrag: the split
+// DFT planes (or the slice's) in fragment order, (NT, KS, 32, 8) float32
+// (see the wrapper).  out0..out5: time-major (T, N) |y| (cm, flat) or
+// interleaved y (complex); time-major phase and mask (flat); channel-major
+// (N, T) |y|, phase difference and saturation count or mask (cm2, cm);
+// unused ones may be null.  FT: frames a tile; R = FT + 1 in the
 // cm2 and cm modes, else FT, a multiple of 16; nct, kcs: the chunk of W
 // that sdr_channelize_plan gave for R.  Returns the cudaError_t of the
 // first failing call, 0 if none.
@@ -747,7 +761,7 @@ extern "C" int sdr_channelize(int mode, int ingest, const void* x0,
                               int stride, const void* taps, const void* wfrag,
                               void* out0, void* out1, void* out2, void* out3,
                               void* out4, void* out5, void* tile_tot, int M,
-                              int P, int T, int FT, int nct, int kcs,
+                              int N, int P, int T, int FT, int nct, int kcs,
                               float scale, float sat_level, void* stream) {
   Args a;
   a.taps = (const float*)taps;
@@ -755,11 +769,11 @@ extern "C" int sdr_channelize(int mode, int ingest, const void* x0,
   void* outs[6] = {out0, out1, out2, out3, out4, out5};
   for (int i = 0; i < 6; ++i) a.out[i] = (float*)outs[i];
   a.tile_tot = (int*)tile_tot;
-  a.M = M; a.P = P; a.T = T; a.FT = FT;
+  a.M = M; a.N = N; a.P = P; a.T = T; a.FT = FT;
   const int R = FT + (mode == kCm2 || mode == kCm ? 1 : 0);
-  if (FT <= 0 || R % 16 || nct <= 0 || kcs <= 0)
+  if (FT <= 0 || R % 16 || nct <= 0 || kcs <= 0 || N <= 0)
     return (int)cudaErrorInvalidValue;
-  a.plan = make_plan(M, P, R, nct, kcs);
+  a.plan = make_plan(M, N, P, R, nct, kcs);
   a.scale = scale;
   a.sat_level = sat_level;
   a.stream = static_cast<cudaStream_t>(stream);

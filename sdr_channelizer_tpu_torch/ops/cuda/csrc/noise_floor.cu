@@ -65,6 +65,7 @@ constexpr int kFewBlocks = 16;
 // a row's candidates that one block finishes in shared memory
 constexpr int kFinishKeys = 40960;
 constexpr int kFinishBytes = kFinishKeys * 4;
+constexpr int kMaxDevices = 64;
 // the sample that predicts the median's 12-bit bins: runs of contiguous
 // values spread evenly over the row
 constexpr int kSampleRuns = 64, kSampleRun = 128;
@@ -552,19 +553,27 @@ extern "C" int sdr_noise_floor_cm(const void* mag, void* out, int rows,
                                   void* scratch, void* buf, int cap,
                                   void* stream) {
   if (rows <= 0 || t_len <= 0) return 0;
-  // blocks enough to fill the card once, spread over the rows
-  static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, nf_pass<0>,
-                                                  kThreads, 0);
-    cudaFuncSetAttribute(nf_pass<2>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kFinishBytes);
-    resident = sms * (per_sm > 0 ? per_sm : 1);
+  // blocks enough to fill the card once, spread over the rows; the finish
+  // pass's shared-memory limit is a setting of the device, so both are
+  // taken once per device (shards of one process may run on several)
+  static int resident_on[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident_on[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, nf_pass<0>, kThreads, 0)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             nf_pass<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kFinishBytes)) != cudaSuccess)
+      return (int)err;
+    resident_on[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
+  const int resident = resident_on[dev];
   const long long n_chunks = ((long long)t_len + kChunk - 1) / kChunk;
   const long long per_row = resident / rows > 0 ? resident / rows : 1;
   const dim3 grid((unsigned)(n_chunks < per_row ? n_chunks : per_row), rows);

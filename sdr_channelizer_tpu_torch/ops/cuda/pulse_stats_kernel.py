@@ -204,10 +204,11 @@ def _live_tiles(toa: torch.Tensor, t_len: int, nt: int):
         out = torch.empty(n_batches * nt + 2, dtype=torch.int32,
                           device=toa.device)
         if n_slots:
-            code = _library().sdr_live_tiles(
-                toa.data_ptr(), n_slots, t_len, n_batches * nt + 1,
-                out.data_ptr(), out[-1:].data_ptr(),
-                torch.cuda.current_stream(toa.device).cuda_stream)
+            with torch.cuda.device(toa.device):
+                code = _library().sdr_live_tiles(
+                    toa.data_ptr(), n_slots, t_len, n_batches * nt + 1,
+                    out.data_ptr(), out[-1:].data_ptr(),
+                    torch.cuda.current_stream(toa.device).cuda_stream)
             _build.check_launch(code, "sdr_live_tiles")
         else:
             out.fill_(-1)[-1] = 0
