@@ -40,7 +40,11 @@ that says it was skipped on one card; ``cards_main`` runs it alone); and
 runs the CLI,
 the capture commands and the views included (``convert``, ``pdw`` on
 every container, ``spectrogram``, ``plot``, ``pdw --png``, ``predict
---png``, ``txrx``, ``provision --dry-run``).  A step that needs
+--png``, ``txrx``, ``provision --dry-run``), then the benchmark harness
+(``bench``: ``sdr_channelizer_tpu_torch.bench`` in-process at M = 64 x
+262144 frames, its launches counted and its pulse counts held against a
+``forward_packed`` step of this run, ``--stages``, ``--planes``, the CLI's
+``bench`` in a fresh process and ``bench_scaling --fused``).  A step that needs
 ``matplotlib``, ``h5py`` or ``cv2`` runs where the library is installed;
 the line ``skipped`` names each step left out and its library.  One JSON
 line per phase; any failure exits
@@ -76,6 +80,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -3781,6 +3786,135 @@ def phase_ingest_views(pipe, caps):
     return skipped
 
 
+BENCH_COUNTS = {
+    "channelize_streams_packed_cm2": "channelizer_kernel.launches",
+    "noise_floor_cm": "nf_kernel.launches",
+    "latch_cumsums_cm": "latch_kernel.launches",
+    "pulse_stats": "pulse_stats_kernel.launches"}
+STAGE_COUNTS = {
+    "channelize_streams (B5)": "channelizer_kernel.launches_flat",
+    "cm_streams (B8)": "transpose_kernel.launches",
+    "latch_cumsums (B7)": "latch_kernel.launches_tm",
+    "pulse_stats_dense (K4)": "pulse_stats_kernel.launches_dense"}
+BENCH_STAGE_LINE = r"^bench: (\S+)\s+([0-9.]+) Msps  \(([0-9.]+) ms\)$"
+
+
+def run_bench(fn, argv) -> tuple:
+    """``fn(argv)`` in this process with its output caught: its one JSON
+    line on stdout and its standard error.  Fails on a non-zero exit."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(argv)
+    check(rc == 0, f"{fn.__module__} {' '.join(argv)}: exit code {rc}")
+    return [json.loads(x) for x in out.getvalue().splitlines()], \
+        err.getvalue()
+
+
+def bench_line_ok(line: dict, where: str) -> None:
+    """A ``bench`` JSON line: the keys of the JAX package's ``bench.py``
+    plus the port's, every reading finite and positive, the card named."""
+    import torch
+
+    keys = {"metric", "value", "unit", "vs_baseline", "latency_p50_ms",
+            "dense_pulses_per_step", "sparse_msps", "sparse_pulses_per_step",
+            "protocol", "rep_spread_pct", "ingest", "device",
+            "device_step_ms", "power_limit_w"}
+    check(set(line) == keys, f"{where}: keys {sorted(line)}")
+    check(line["metric"] == "channelize_pdw_throughput"
+          and line["unit"] == "Msamples/s/card", f"{where}: metric / unit")
+    check(line["device"] == f"cuda:{torch.cuda.get_device_name(0)}",
+          f"{where}: device {line['device']!r}")
+    for key in ("value", "vs_baseline", "latency_p50_ms", "sparse_msps",
+                "device_step_ms", "power_limit_w", "dense_pulses_per_step",
+                "sparse_pulses_per_step"):
+        v = line[key]
+        check(v is not None and np.isfinite(v) and v > 0,
+              f"{where}: {key} = {v}")
+    check(np.isfinite(line["rep_spread_pct"]) and line["rep_spread_pct"] >= 0,
+          f"{where}: rep_spread_pct = {line['rep_spread_pct']}")
+    check(line["device_step_ms"] <= 1.1 * line["latency_p50_ms"],
+          f"{where}: the graph's step {line['device_step_ms']} ms over 1.1 x "
+          f"the events' {line['latency_p50_ms']} ms")
+
+
+def phase_bench(pipe, caps):
+    """The benchmark harness (``sdr_channelizer_tpu_torch.bench``) at its
+    full size, M = 64 x 262144 frames, in this process: the headline (K1,
+    K2 and K3 once a step, K4 twice, counted), its dense and sparse pulse
+    counts against one ``forward_packed`` step of this run on the same
+    capture; ``--stages`` (B5, B8, B7 and K4 counted) and ``--planes``;
+    ``bench`` through the CLI in a fresh process; ``bench_scaling --fused``
+    at the sizes the cards give (size 1 on one card)."""
+    import torch
+
+    from sdr_channelizer_tpu_torch import bench, bench_scaling
+
+    t0 = time.perf_counter()
+    ref = {}
+    for name, samples in caps.items():
+        xq = torch.as_tensor(pack(samples), device=pipe.device)
+        ref[name] = int(pipe.forward_packed(xq, BIT_WIDTH)[2].count.sum())
+        del xq
+    reset_counts(BENCH_COUNTS)
+    (head,), err = run_bench(bench.main, [])
+    launches = read_counts(BENCH_COUNTS)
+    bench_line_ok(head, "bench")
+    host = re.search(r"^bench: host launches a dense step in ([0-9.]+) ms",
+                     err, re.M)
+    check(host is not None, "bench: no line of the host's launch time")
+    for name in ("dense", "sparse"):
+        got = head[f"{name}_pulses_per_step"]
+        check(got == ref[name], f"bench: {got} {name} pulses a step, "
+                                f"forward_packed {ref[name]}")
+    steps = launches["channelize_streams_packed_cm2"]
+    check(steps >= 2 * 120 * 5, f"bench: K1 launched {steps} times")
+    check(launches["noise_floor_cm"] == launches["latch_cumsums_cm"] == steps
+          and launches["pulse_stats"] == 2 * steps,
+          f"bench: launches {launches}, not K1-K3 once a step, K4 twice")
+
+    reset_counts(STAGE_COUNTS)
+    (staged,), err = run_bench(bench.main, ["--stages", "--rounds", "3"])
+    stage_launches = read_counts(STAGE_COUNTS)
+    bench_line_ok(staged, "bench --stages")
+    stages = {m[0]: {"msamples_per_s": float(m[1]), "ms": float(m[2])}
+              for m in re.findall(BENCH_STAGE_LINE, err, re.M)}
+    check(list(stages) == ["streams_kernel", "noise_floor", "pdw_extract"],
+          f"bench --stages: stage lines {list(stages)}")
+    check(all(v > 0 for v in stage_launches.values()),
+          f"bench --stages: launches {stage_launches}")
+
+    (planes,), _ = run_bench(bench.main, ["--planes", "--rounds", "3"])
+    bench_line_ok(planes, "bench --planes")
+    check(planes["ingest"] == "f32_planes"
+          and planes["dense_pulses_per_step"] == ref["dense"]
+          and planes["sparse_pulses_per_step"] == ref["sparse"],
+          f"bench --planes: {planes['dense_pulses_per_step']} / "
+          f"{planes['sparse_pulses_per_step']} pulses, packed {ref}")
+
+    t_cli = time.perf_counter()
+    res = run_module_cli(["bench", "--", "--iters", "20", "--rounds", "2"])
+    check(res.returncode == 0, f"cli bench: exit {res.returncode}: "
+                               f"{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    check(len(lines) == 1, f"cli bench: {len(lines)} lines on stdout")
+    cli = json.loads(lines[0])
+    bench_line_ok(cli, "cli bench")
+    check(cli["dense_pulses_per_step"] == ref["dense"],
+          f"cli bench: {cli['dense_pulses_per_step']} dense pulses")
+    cli_s = time.perf_counter() - t_cli
+
+    scaling, _ = run_bench(bench_scaling.main, ["--fused"])
+    check(scaling and scaling[0]["devices"] == 1
+          and scaling[0]["mesh"] == "1x1" and scaling[0]["value"] > 0,
+          f"bench_scaling --fused: {scaling}")
+    emit("bench", headline=head, host_launch_ms=float(host.group(1)),
+         launches=launches, forward_packed_pulses=ref,
+         stages=stages, stage_launches=stage_launches,
+         stages_headline_ms=staged["latency_p50_ms"],
+         planes=planes, cli=cli, cli_s=cli_s, scaling_fused=scaling,
+         wall_s=time.perf_counter() - t0)
+
+
 def phase_cli():
     """A synthetic ``.iq`` file through ``pdw --channelized`` on the card,
     then the same samples as two files through ``pdw --stream``, then
@@ -4006,6 +4140,7 @@ def main() -> int:
         phase_cards(pipe, caps)
         skipped = phase_ingest_views(pipe, caps)
         skipped += phase_cli()
+        phase_bench(pipe, caps)
         # the views' libraries are optional: what was left out, and why
         emit("skipped", steps=skipped,
              installed={lib: have(lib) for lib in ("matplotlib", "h5py",

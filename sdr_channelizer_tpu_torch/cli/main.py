@@ -10,7 +10,8 @@ cpu`` is given.
 ``pdw --shards N`` extracts over N time shards (``parallel``): on the first
 N CUDA devices, or all N on one card where the machine has fewer than N
 (the JAX package refuses that case), or on the CPU with ``--device cpu``.
-``bench`` is not ported yet and exits with an error that says so.
+``bench`` runs the port's benchmark (``sdr_channelizer_tpu_torch.bench``)
+in this process; its flags follow ``--`` (``bench -- --stages``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,6 @@ import sys
 from typing import List, Optional
 
 import numpy as np
-
-
-def _not_ported(what: str) -> "SystemExit":
-    return SystemExit(f"error: not ported yet: {what}")
 
 
 def _out_path(in_path: str, out_dir: Optional[str], new_ext: str) -> str:
@@ -627,7 +624,9 @@ def cmd_provision(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise _not_ported("bench (the port's benchmark harness)")
+    from sdr_channelizer_tpu_torch import bench
+
+    return bench.main(args.bench_args)
 
 
 def _add_capture_args(p):
@@ -805,8 +804,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="print the bladeRF-cli commands without running them")
     p.set_defaults(fn=cmd_provision)
 
-    p = sub.add_parser("bench", help="(not ported yet) the benchmark")
-    p.add_argument("bench_args", nargs="*")
+    p = sub.add_parser(
+        "bench", help="the benchmark (sdr_channelizer_tpu_torch.bench); "
+                      "its flags after --, as in: bench -- --stages")
+    p.add_argument("bench_args", nargs="*",
+                   help="arguments of sdr_channelizer_tpu_torch.bench, "
+                        "after --")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

@@ -2,6 +2,7 @@
 codec writes the JAX codec's bytes, its CLI runs end to end on the CPU, and
 its default device is the card."""
 
+import json
 import os
 import re
 import subprocess
@@ -54,6 +55,8 @@ def test_fresh_interpreter_imports_no_jax():
         "import sdr_channelizer_tpu_torch.parallel.mesh\n"
         "import sdr_channelizer_tpu_torch.parallel.pipeline\n"
         "import sdr_channelizer_tpu_torch.parallel.multihost\n"
+        "import sdr_channelizer_tpu_torch.bench\n"
+        "import sdr_channelizer_tpu_torch.bench_scaling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'sdr_channelizer_tpu', 'triton', 'matplotlib', "
         "'h5py', 'cv2')]\n"
@@ -135,11 +138,14 @@ def test_cli_generate_then_pdw_on_the_cpu(tmp_path, capsys):
     assert np.all(np.diff(p["toa"]) >= 0)
 
 
-@pytest.mark.parametrize("argv", [["bench"]])
-def test_cli_says_what_is_not_ported(argv):
-    with pytest.raises(SystemExit) as e:
-        main(argv)
-    assert "not ported yet" in str(e.value)
+def test_cli_bench_runs_the_harness(capsys):
+    assert main(["bench", "--", "--cpu", "--bands", "8", "--frames", "4096",
+                 "--iters", "2", "--rounds", "1"]) == 0
+    (line,) = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(line)
+    assert line["metric"] == "channelize_pdw_throughput"
+    assert line["device"] == "cpu" and line["ingest"] == "packed_int16"
+    assert line["value"] > 0 and line["sparse_pulses_per_step"] > 0
 
 
 @pytest.mark.parametrize("extra", [
