@@ -16,7 +16,9 @@ complex samples through the fused one-channel streams, the time-major latch
 and the statistics at one channel, and 33,554,432 samples block by block,
 the flip kernel a block, against the oracle extractor), the single-shot
 routes ``"flat"`` and ``"cm"`` against
-``"cm2"``, float payloads and the complex-free step; then the batched
+``"cm2"``, float payloads and the complex-free step, and the JAX package's
+call forms (``routes_api_calls``: ``chan(x)``, a (3, N) batch and
+``stream_block`` on B9, counted on a line of their own); then the batched
 statistics kernel on the main path and route ``"cm"`` (``stats_batch``:
 PDWs bit for bit those of the per-slot kernel), event prediction (eight 80
 ms dwells at 56 Msps of a scanning beam, written by the recorder, through
@@ -1292,7 +1294,9 @@ def kernels_flat_complex_main_shape(xq, samples, pipe, rows):
 
     mag, ph, sat = flat[0], flat[1], flat[2] > 0.5
     # B7 on the magnitude B5 gives it, with the flat route's thresholds
-    lead, trail = pdwmod._thresholds(median(mag, dim=0), pipe.pdw_cfg)
+    cfg = pipe.pdw_cfg
+    lead, trail = pdwmod._thresholds(median(mag, dim=0), cfg.snr_threshold_db,
+                                     cfg.trailing_threshold_db)
     a = k.latch_cumsums(mag, lead, trail)
     b = k.latch_cumsums_plain(mag, lead, trail)
     check(same(a, b), f"B7 flat-route shape: off by {max_abs(a, b):.3g}")
@@ -1715,7 +1719,8 @@ def kernels_long_window(rows):
                                    warmup=1),
              "bound_ms": 4 * (n + 1) / HBM_BYTES_PER_S * 1e3,
              "buffer_fits": _nf_fits(row1, n)}
-    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(nf[0], cfg))
+    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(
+        nf[0], cfg.snr_threshold_db, cfg.trailing_threshold_db))
     packed = k.latch_cumsums(mag[:, None], lead, trail)
     check(same(packed, k.latch_cumsums_plain(mag[:, None], lead, trail)),
           "B7 predict shape: differs from plain")
@@ -2203,7 +2208,8 @@ def phase_wideband(rows, dwells: dict):
     check(same(nf.reshape(()), pipe.forward(x)[0]),
           "wideband: the step's floor is not K2's")
     nf = nf.reshape(())
-    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(nf, cfg))
+    lead, trail = (t.reshape(1) for t in pdwmod._thresholds(
+        nf, cfg.snr_threshold_db, cfg.trailing_threshold_db))
     mag2, ph2, sat2 = mag[:, None], ph[:, None], sat[:, None]
     parts = {
         "wideband_streams_ms": time_ms(lambda: k.wideband_streams(x, level),
@@ -2521,7 +2527,85 @@ def phase_routes(pipe, caps):
         "pulses": len(planes["toa"]), "extract_s": wall,
         **recovers_generator(planes, n, M_MAIN)}
     emit("routes", bands=M_MAIN, frames=FRAMES_MAIN, **out)
+    routes_api_calls(pipe, caps)
     return launches
+
+
+def routes_api_calls(pipe, caps) -> None:
+    """The JAX package's call forms on the card at M = 64 x 262144 frames,
+    on a line of their own with their own launch counts (the ``kernels``
+    line's stay those of the main path and of the routes above): ``chan(x)``
+    (``method="auto"``: B9) is ``channelize(x, chan, method="dft")`` bit for
+    bit in one launch; a (3, N) batch is its three 1-D calls bit for bit,
+    one launch a row; ``stream_block`` over four blocks (B9 seeded with each
+    block's history) folds to ``chan(x)`` bit for bit.  ``chan(x)`` is also
+    held against B9's plain version and the FFT oracle."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.dsp.channelizer import channelize
+    from sdr_channelizer_tpu_torch.io import iqpacket
+    from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
+
+    b9 = {"channelize_complex": "channelizer_kernel.launches_complex"}
+    chan = pipe.channelizer
+    dev = pipe.device
+    rows = [torch.as_tensor(iqpacket.to_complex(caps[name], BIT_WIDTH),
+                            device=dev) for name in ("sparse", "dense")]
+    rows.append(torch.roll(rows[0], 12345))
+    x = rows[0]
+
+    def launches_of(fn):
+        reset_counts(b9)
+        got = fn()
+        torch.cuda.synchronize()
+        return got, read_counts(b9)["channelize_complex"]
+
+    out = {}
+    y, out["call_launches"] = launches_of(lambda: chan(x))
+    check(out["call_launches"] == 1,
+          f"chan(x): B9 launched {out['call_launches']} times, not once")
+    check(tuple(y.shape) == (FRAMES_MAIN, M_MAIN)
+          and y.dtype == torch.complex64, f"chan(x): shape {tuple(y.shape)}")
+    check(same(y, channelize(x, chan, method="dft")),
+          "chan(x) vs channelize(x, chan, method='dft'): not bit for bit")
+    y_ri = torch.view_as_real(y)
+    for what, ref in (("plain", ck.channelize_complex_plain(x, chan.taps_rev)),
+                      ("fft", channelize(x, chan, method="fft"))):
+        ref = torch.view_as_real(ref)
+        err = out[f"call_max_abs_err_vs_{what}"] = max_abs(y_ri, ref)
+        check(torch.allclose(y_ri, ref, rtol=MAG_TOL, atol=MAG_TOL),
+              f"chan(x) vs the {what} form: off by {err:.3g}")
+    del ref
+    out["call_ms"] = time_ms(lambda: chan(x))
+
+    xb = torch.stack(rows)
+    yb, out["batch_launches"] = launches_of(lambda: chan(xb))
+    check(out["batch_launches"] == len(rows),
+          f"chan(x) on a ({len(rows)}, N) batch: {out['batch_launches']} "
+          f"launches")
+    check(tuple(yb.shape) == (len(rows), FRAMES_MAIN, M_MAIN),
+          f"batch: shape {tuple(yb.shape)}")
+    for i, row in enumerate(rows):
+        check(same(yb[i], chan(row)), f"batch row {i} vs its 1-D call: not "
+                                      f"bit for bit")
+    out["batch_ms"] = time_ms(lambda: chan(xb), reps=5)
+    del xb, yb
+
+    cuts = [0, 5, 70000, 70001, FRAMES_MAIN]   # a block shorter than P
+    state = chan.init_state(dev)
+    parts = []
+    reset_counts(b9)
+    for lo, hi in zip(cuts, cuts[1:]):
+        part, state = chan.stream_block(x[lo * M_MAIN:hi * M_MAIN], state)
+        parts.append(part)
+    torch.cuda.synchronize()
+    out["stream_launches"] = read_counts(b9)["channelize_complex"]
+    check(out["stream_launches"] == len(cuts) - 1,
+          f"stream_block: B9 launched {out['stream_launches']} times")
+    check(same(torch.cat(parts), y),
+          "stream_block folded over four blocks vs chan(x): not bit for bit")
+    emit("routes_api_calls", bands=M_MAIN, frames=FRAMES_MAIN,
+         batch_rows=len(rows), stream_cuts=cuts, **out)
 
 
 def phase_stats_batch(pipe, caps):

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -169,6 +170,14 @@ def power_limit_w(dev: torch.device) -> Optional[float]:
         return None
 
 
+def places(x: float) -> int:
+    """Decimal places that print ``x`` to four significant digits, at least
+    one: a rate or a time that is not zero never reads zero."""
+    if not (x and math.isfinite(x)):
+        return 1
+    return max(1, 3 - math.floor(math.log10(abs(x))))
+
+
 def _stage_lines(pipe, i16: np.ndarray, n: int, iters: int, rounds: int,
                  dev: torch.device) -> None:
     """The coarse split of the step (the channelizer kernel's flat streams,
@@ -192,8 +201,9 @@ def _stage_lines(pipe, i16: np.ndarray, n: int, iters: int, rounds: int,
         step()
     for name, per in time_rounds(stages, iters, rounds, dev)[0].items():
         ms = statistics.median(per)
-        print(f"bench: {name:<14s} {n / ms / 1e3:10.1f} Msps  "
-              f"({ms:.2f} ms)", file=sys.stderr)
+        msps = n / ms / 1e3
+        print(f"bench: {name:<14s} {msps:10.{places(msps)}f} Msps  "
+              f"({ms:.{places(ms)}f} ms)", file=sys.stderr)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -17,7 +17,9 @@ after.  ``--fixed-total`` shards the same capture at every size, so the
 ratio to size 1 measures the sharding's overhead rather than its scaling.
 
 Prints one JSON line per mesh size and, with more than one size, a
-summary line; diagnostics go to stderr.
+summary line, every number unrounded (a slow host mesh reads well under
+0.1 Msamples/s, which a fixed number of places would print as zero);
+diagnostics go to stderr.
 """
 
 from __future__ import annotations
@@ -116,10 +118,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             eff = msps / (results[1] * nd) if nd > 1 else 1.0
         print(json.dumps({
             "metric": "sharded_throughput", "devices": nd,
-            "mesh": f"{n_time}x{n_chan}", "value": round(msps, 1),
+            "mesh": f"{n_time}x{n_chan}", "value": msps,
             "unit": "Msamples/s",
             ("overhead_efficiency" if args.fixed_total
-             else "scaling_efficiency"): round(eff, 3),
+             else "scaling_efficiency"): eff,
         }), flush=True)
 
     if len(results) > 1:
@@ -131,8 +133,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             eff = results[top] / (results[1] * top)
             name = "scaling_efficiency"
         print(json.dumps({
-            "metric": name, "value": round(eff, 3),
-            "unit": f"1->{top} devices", "vs_baseline": round(eff / 0.8, 2),
+            "metric": name, "value": eff,
+            "unit": f"1->{top} devices", "vs_baseline": eff / 0.8,
         }), flush=True)
     print("done", file=sys.stderr)
     return 0

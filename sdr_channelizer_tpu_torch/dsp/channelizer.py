@@ -13,8 +13,9 @@ Frame convention (output row ``n`` consumes input frame ``n`` fully):
 with frames ``F[n, rho] = x[nM + rho]`` and the frame-aligned polyphase taps
 ``Hr[p, rho] = h[pM + (M-1-rho)]``.  The CUDA channelizer kernel's plain
 version is checked against this module.  On a CUDA device the DFT-product
-form (``method="dft"``, and ``channelize_planes``) runs in the channelizer
-kernel's complex form; the FFT form stays the oracle everywhere.
+form (``method="dft"``, what ``"auto"`` means there, and
+``channelize_planes``) runs in the channelizer kernel's complex form; the
+FFT form (what ``"auto"`` means on the CPU) stays the oracle everywhere.
 """
 
 from __future__ import annotations
@@ -100,11 +101,16 @@ class Channelizer:
         return ChannelizerState(frames=torch.zeros(
             (p, m), dtype=torch.complex64, device=resolve_device(device)))
 
+    def __call__(self, x, shift: bool = True, method: str = "auto",
+                 device=None) -> torch.Tensor:
+        return channelize(x, self, shift=shift, method=method, device=device)
+
     def stream_block(self, x_block, state: ChannelizerState,
-                     shift: bool = True, method: str = "fft"):
+                     shift: bool = True, method: str = "auto"):
         """Channelize one block carrying the filter history across calls;
         returns ``(y (T, M) complex64, new state)``.  The block runs on the
-        state's device.
+        state's device; on a CUDA device the DFT form is the channelizer
+        kernel's complex form, seeded with the state's frames.
 
         Splitting a capture into blocks and folding them through
         ``stream_block`` gives the output of one :func:`channelize` call bit
@@ -121,27 +127,28 @@ class Channelizer:
 
 def fir_branches(frames: torch.Tensor, taps_rev: torch.Tensor,
                  history: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Polyphase branch FIR over (T, M) frames, as P shifted multiply-adds:
-    ``u[n] = sum_p Hr[p] * F[n - p]``.  ``history`` holds the frames before
-    the first one, at least P-1 of them (the last P-1 are used); default
-    zeros, the initial state."""
+    """Polyphase branch FIR over (..., T, M) frames, as P shifted
+    multiply-adds: ``u[n] = sum_p Hr[p] * F[n - p]``.  ``history`` holds
+    the (P', M) frames before the first one, P' >= P-1 (the last P-1 are
+    used); default zeros, the initial state."""
     p = taps_rev.shape[0]
-    t = frames.shape[0]
+    t = frames.shape[-2]
     if history is None:
-        head = frames.new_zeros((p - 1, frames.shape[1]))
+        head = frames.new_zeros((*frames.shape[:-2], p - 1, frames.shape[-1]))
     else:
-        if history.shape[0] < p - 1:
+        if history.shape[-2] < p - 1:
             raise ValueError(f"history needs at least {p - 1} frames")
-        head = history[history.shape[0] - (p - 1):].to(frames.dtype)
-    padded = torch.cat([head, frames], dim=0)
+        head = history[..., history.shape[-2] - (p - 1):, :].to(frames.dtype)
+    padded = torch.cat([head, frames], dim=-2)
     u = torch.zeros_like(frames)
     for pp in range(p):
-        u = u + taps_rev[pp] * padded[p - 1 - pp: p - 1 - pp + t]
+        u = u + taps_rev[pp] * padded[..., p - 1 - pp: p - 1 - pp + t, :]
     return u
 
 
-def resolve_method(method: str, device) -> str:
-    """Pick the channel-extraction form for tensors on ``device``.
+def resolve_method(method: str = "auto", device=None) -> str:
+    """Pick the channel-extraction form for tensors on ``device`` (``None``:
+    the card).
 
     ``"fft"`` -- ``torch.fft.fft`` + ``fftshift``: the oracle, and the form
     for the CPU.  ``"dft"`` -- the product with the shift-folded DFT matrix,
@@ -149,26 +156,40 @@ def resolve_method(method: str, device) -> str:
     on the CPU and ``"dft"`` on a CUDA device."""
     if method != "auto":
         return method
-    return "dft" if torch.device(device).type == "cuda" else "fft"
+    device = torch.device("cuda" if device is None else device)
+    return "dft" if device.type == "cuda" else "fft"
 
 
-def channelize(x, chan: Channelizer, shift: bool = True, method: str = "fft",
+def channelize(x, chan: Channelizer, shift: bool = True, method: str = "auto",
                device=None) -> torch.Tensor:
-    """Channelize a 1-D complex capture; returns ``(N // M, M)`` complex64.
+    """Channelize a complex capture (..., N); returns ``(..., N // M, M)``
+    complex64, each leading index a capture of its own.
 
-    ``method``: ``"fft"`` (the oracle) or ``"dft"`` (product with the
+    ``method``: ``"fft"`` (the oracle), ``"dft"`` (product with the
     shift-folded DFT matrix, the form the kernel computes; on a CUDA device
-    the channelizer kernel computes it)."""
+    the channelizer kernel computes it, one launch a capture) or ``"auto"``
+    (:func:`resolve_method`)."""
     device = resolve_device(device)
+    method = resolve_method(method, device)
     m = chan.num_bands
     x = torch.as_tensor(x).to(device=device, dtype=torch.complex64)
-    if method == "dft" and device.type == "cuda" and x.ndim == 1:
+    lead = x.shape[:-1]
+    n_frames = x.shape[-1] // m
+    x = x[..., : n_frames * m]
+    if method == "dft" and device.type == "cuda":
         from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel
 
-        return channelizer_kernel.channelize_complex(
-            x.contiguous(), chan.taps_rev, shift)
-    n_frames = x.shape[-1] // m
-    frames = x[: n_frames * m].reshape(n_frames, m)
+        if not lead:
+            return channelizer_kernel.channelize_complex(
+                x.contiguous(), chan.taps_rev, shift)
+        rows = x.reshape(lead.numel(), n_frames * m).contiguous()
+        y = torch.empty((rows.shape[0], n_frames, m), dtype=torch.complex64,
+                        device=device)
+        for r in range(rows.shape[0]):
+            y[r] = channelizer_kernel.channelize_complex(
+                rows[r], chan.taps_rev, shift)
+        return y.reshape(*lead, n_frames, m)
+    frames = x.reshape(*lead, n_frames, m)
     taps = torch.as_tensor(chan.taps_rev, device=device)
     return _bands(fir_branches(frames, taps), m, shift, method)
 
@@ -202,15 +223,23 @@ def _bands(u: torch.Tensor, m: int, shift: bool, method: str) -> torch.Tensor:
 
 
 def _channelize_block(x_block, state: ChannelizerState, taps_rev,
-                      num_bands: int, shift: bool = True, method: str = "fft"):
+                      num_bands: int, shift: bool = True, method: str = "auto"):
     """One block of :meth:`Channelizer.stream_block`."""
     m = num_bands
     dev = state.frames.device
+    method = resolve_method(method, dev)
     x = torch.as_tensor(x_block).to(device=dev, dtype=torch.complex64)
     n_frames = x.shape[-1] // m
-    frames = x[: n_frames * m].reshape(n_frames, m)
+    x = x[: n_frames * m].contiguous()
+    frames = x.reshape(n_frames, m)
     taps = torch.as_tensor(np.asarray(taps_rev, np.float32), device=dev)
-    y = _bands(fir_branches(frames, taps, state.frames), m, shift, method)
     p = taps.shape[0]
+    if method == "dft" and dev.type == "cuda":
+        from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel
+
+        y = channelizer_kernel.channelize_complex(
+            x, taps_rev, shift, history=state.frames[1:] if p > 1 else None)
+    else:
+        y = _bands(fir_branches(frames, taps, state.frames), m, shift, method)
     all_frames = torch.cat([state.frames, frames], dim=0)
     return y, ChannelizerState(frames=all_frames[all_frames.shape[0] - p:])

@@ -99,11 +99,21 @@ class PdwBatch:
     count: torch.Tensor  # i32, number of valid PDWs
 
 
-def _thresholds(noise_floor: torch.Tensor, cfg: PdwConfig):
-    lead = noise_floor * 10.0 ** (cfg.snr_threshold_db / 10.0)
-    if cfg.trailing_threshold_db is None:
+def _thresholds(noise_floor: torch.Tensor, snr_threshold_db: float,
+                trailing_threshold_db: Optional[float]):
+    lead = noise_floor * 10.0 ** (snr_threshold_db / 10.0)
+    if trailing_threshold_db is None:
         return lead, lead
-    return lead, noise_floor * 10.0 ** (cfg.trailing_threshold_db / 10.0)
+    return lead, noise_floor * 10.0 ** (trailing_threshold_db / 10.0)
+
+
+def _core_kwargs(cfg: PdwConfig) -> dict:
+    """The keyword arguments of :func:`extract_pdws_block_core` (and, with
+    ``saturation_level``, of :func:`extract_pdws_core`) that ``cfg`` holds."""
+    return dict(snr_threshold_db=cfg.snr_threshold_db,
+                trailing_threshold_db=cfg.trailing_threshold_db,
+                max_pulses=cfg.max_pulses,
+                max_pulse_samples=cfg.max_pulse_samples)
 
 
 def compose_transfer(f1, f2):
@@ -150,11 +160,11 @@ def hysteresis_fns(ge_lead: torch.Tensor, le_trail: torch.Tensor,
     return a.movedim(-1, dim), b.movedim(-1, dim)
 
 
-def hysteresis_scan(ge_lead: torch.Tensor,
-                    le_trail: torch.Tensor) -> torch.Tensor:
-    """Pulse-active state after each sample along the last dimension, the
-    latch starting inactive (the reference's ``pulseActive = false``)."""
-    return hysteresis_fns(ge_lead, le_trail)[0]
+def hysteresis_scan(ge_lead: torch.Tensor, le_trail: torch.Tensor,
+                    dim: int = -1) -> torch.Tensor:
+    """Pulse-active state after each sample along ``dim``, the latch
+    starting inactive (the reference's ``pulseActive = false``)."""
+    return hysteresis_fns(ge_lead, le_trail, dim=dim)[0]
 
 
 def _edge_indices(edge: torch.Tensor, max_pulses: int) -> torch.Tensor:
@@ -174,25 +184,34 @@ def extract_pdws_core(
     phase_deg: torch.Tensor,
     sat_sample: torch.Tensor,
     noise_floor: torch.Tensor,
-    cfg: PdwConfig,
+    *,
+    snr_threshold_db: float,
+    trailing_threshold_db: Optional[float],
+    saturation_level: float,
+    max_pulses: int,
+    max_pulse_samples: int,
 ) -> PdwBatch:
     """The oracle extractor over detection streams with time last.
 
     ``mag``, ``phase_deg``, ``sat_sample``: (T,) or (M, T);
-    ``noise_floor``: scalar or (M,).
+    ``noise_floor``: scalar or (M,).  The keywords are the ``PdwConfig``
+    fields of the same names; ``saturation_level`` is unused, as in the
+    JAX package (``sat_sample`` holds the comparison already).
     """
-    lead, trail = _thresholds(noise_floor, cfg)
+    del saturation_level
+    lead, trail = _thresholds(noise_floor, snr_threshold_db,
+                              trailing_threshold_db)
     state = hysteresis_scan(mag >= lead[..., None], mag <= trail[..., None])
     prev = torch.cat([torch.zeros_like(state[..., :1]), state[..., :-1]], -1)
     lead_edge = state & ~prev
     trail_edge = ~state & prev  # True exactly at the reference's `jj`
-    toa_idx = _edge_indices(lead_edge, cfg.max_pulses)
-    te_idx = _edge_indices(trail_edge, cfg.max_pulses)
+    toa_idx = _edge_indices(lead_edge, max_pulses)
+    te_idx = _edge_indices(trail_edge, max_pulses)
     # A capture with more pulses than slots drops the overflow.
-    count = trail_edge.sum(-1).clamp(max=cfg.max_pulses).to(torch.int32)
-    valid = torch.arange(cfg.max_pulses, device=mag.device) < count[..., None]
+    count = trail_edge.sum(-1).clamp(max=max_pulses).to(torch.int32)
+    valid = torch.arange(max_pulses, device=mag.device) < count[..., None]
     return _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx,
-                       te_idx, valid, count, cfg.max_pulse_samples)
+                       te_idx, valid, count, max_pulse_samples)
 
 
 def extract_pdws_block_core(
@@ -201,8 +220,12 @@ def extract_pdws_block_core(
     sat_sample: torch.Tensor,
     noise_floor: torch.Tensor,
     entry_active: torch.Tensor,
+    *,
     own_len: int,
-    cfg: PdwConfig,
+    snr_threshold_db: float,
+    trailing_threshold_db: Optional[float],
+    max_pulses: int,
+    max_pulse_samples: int,
 ) -> PdwBatch:
     """The oracle extractor for one time block (the block contract above).
 
@@ -212,10 +235,12 @@ def extract_pdws_block_core(
     last pulse stays unmatched.  ``noise_floor`` and the boolean
     ``entry_active``: scalar or (M,).  With a halo at least one sample longer
     than the longest pulse, the blocks' PDWs, offset by the block starts,
-    are those of :func:`extract_pdws_core` over the whole capture.
+    are those of :func:`extract_pdws_core` over the whole capture.  The
+    keywords besides ``own_len`` are the ``PdwConfig`` fields of the same
+    names.
     """
-    max_pulses = cfg.max_pulses
-    lead, trail = _thresholds(noise_floor, cfg)
+    lead, trail = _thresholds(noise_floor, snr_threshold_db,
+                              trailing_threshold_db)
     a, b = hysteresis_fns(mag >= lead[..., None], mag <= trail[..., None])
     entry = entry_active[..., None]
     state = torch.where(entry, b, a)
@@ -239,7 +264,7 @@ def extract_pdws_block_core(
     matched = (slot < n_own[..., None]) & (te_idx < t_total)
     count = matched.sum(-1).to(torch.int32)
     return _emit_batch(mag, phase_deg, sat_sample, noise_floor, toa_idx,
-                       te_idx, matched, count, cfg.max_pulse_samples)
+                       te_idx, matched, count, max_pulse_samples)
 
 
 def block_transfer(mag: torch.Tensor, noise_floor: torch.Tensor,
@@ -252,9 +277,8 @@ def block_transfer(mag: torch.Tensor, noise_floor: torch.Tensor,
     The last column of :func:`hysteresis_fns`, by reductions instead of
     scans: the block ends in the state of its last set or reset (or its
     start state, if it has none), flipped once per toggle after it."""
-    lead = noise_floor * 10.0 ** (snr_threshold_db / 10.0)
-    trail = lead if trailing_threshold_db is None else \
-        noise_floor * 10.0 ** (trailing_threshold_db / 10.0)
+    lead, trail = _thresholds(noise_floor, snr_threshold_db,
+                              trailing_threshold_db)
     ge_lead, le_trail = mag >= lead, mag <= trail
     pos = torch.arange(mag.shape[-1], dtype=torch.int32, device=mag.device)
     last = torch.where(ge_lead ^ le_trail, pos,
@@ -384,8 +408,9 @@ def _wideband_tail_run(mag, phase_deg, sat, cfg: PdwConfig, noise_floor,
             noise_floor.reshape(1), cm_streams=cm_streams, ops=ops)
         return noise_floor, PdwBatch(**{f.name: getattr(batch, f.name)[0]
                                         for f in dataclasses.fields(PdwBatch)})
-    return noise_floor, extract_pdws_core(mag, phase_deg, sat, noise_floor,
-                                          cfg)
+    return noise_floor, extract_pdws_core(
+        mag, phase_deg, sat, noise_floor,
+        saturation_level=cfg.saturation_level, **_core_kwargs(cfg))
 
 
 def extract_pdws_with_floor(
@@ -466,7 +491,8 @@ def extract_pdws_channelized_streams(
         noise_floor = median(mag, dim=0)
     return extract_pdws_core(mag.T.contiguous(), phase_deg.T.contiguous(),
                              sat.T.contiguous().to(torch.bool), noise_floor,
-                             cfg)
+                             saturation_level=cfg.saturation_level,
+                             **_core_kwargs(cfg))
 
 
 def extract_pdws_channelized_planes(
@@ -557,7 +583,8 @@ def _extract_channelized_cm2(
     dev = mag_cm.device
     own = t_len if own_len is None else own_len
 
-    lead_thresh, trail_thresh = _thresholds(noise_floor, cfg)
+    lead_thresh, trail_thresh = _thresholds(
+        noise_floor, cfg.snr_threshold_db, cfg.trailing_threshold_db)
     latch_in = mag_cm if mag_latch_cm is None else mag_latch_cm
     entry_f = None if entry_active is None else \
         entry_active.to(device=dev, dtype=torch.float32)
@@ -701,7 +728,8 @@ def _extract_channelized_pallas_stats(
     dev = mag.device
     own = t_len if own_len is None else own_len
 
-    lead_thresh, trail_thresh = _thresholds(noise_floor, cfg)
+    lead_thresh, trail_thresh = _thresholds(
+        noise_floor, cfg.snr_threshold_db, cfg.trailing_threshold_db)
     entry_f = None if entry_active is None else \
         entry_active.to(device=dev, dtype=torch.float32)
     packed = ops.latch_tm(mag, lead_thresh, trail_thresh, entry_f)

@@ -23,9 +23,10 @@ windows.  This module formalizes both:
 raw payload goes to the device as it is on disk and runs through the
 hand-written kernels (``ops.cuda``: the channelizer's cm form, the
 time-major latch, the pulse statistics with the saturation mask).
-``extract_segment`` and ``extract`` are the plain PyTorch forms over the FFT
-channelizer and the oracle block extractor; they also run wideband
-(``channelizer=None``).
+``extract_segment`` and ``extract`` are the oracle forms: the channelizer's
+default form (the FFT on the CPU; on the card the channelizer kernel's
+complex form, seeded with each block's history) and the plain PyTorch
+block extractor; they also run wideband (``channelizer=None``).
 
 Noise floors: the reference uses the median over the *whole* capture, which
 no single streaming pass can produce.  ``noise_floor="two_pass"`` (default)
@@ -315,7 +316,7 @@ class StreamingExtractor:
         mag_cm = mag_e.T.contiguous()
         batch = pdwmod.extract_pdws_block_core(
             mag_cm, ph_e.T.contiguous(), sat_e.T.contiguous(), nf, entry,
-            own_len, cfg)
+            own_len=own_len, **pdwmod._core_kwargs(cfg))
         a, b = pdwmod.block_transfer(
             mag_cm[:, :own_len], nf[:, None], cfg.snr_threshold_db,
             cfg.trailing_threshold_db)
@@ -631,8 +632,9 @@ class StreamingExtractor:
         checkpoint_dir: Optional[str] = None,
     ) -> dict:
         """Block-random-access extraction over a :class:`Segment`, with
-        optional checkpoint/resume, in plain PyTorch (FFT channelizer and
-        the oracle block extractor; wideband with ``channelizer=None``).
+        optional checkpoint/resume, in the oracle forms (the channelizer's
+        default form and the plain PyTorch block extractor; wideband with
+        ``channelizer=None``).
 
         Each block of ``block_frames`` frames is processed independently:
         its FIR history is read again from the raw samples (frames

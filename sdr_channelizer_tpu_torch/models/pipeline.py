@@ -7,8 +7,10 @@ words out.  ``forward_packed`` / ``extract_fused`` are the main path: the
 recorder's integer payload goes to the device as it is on disk and runs
 through the hand-written kernels; ``forward_fused`` is the same step on two
 sample planes (float payloads).  ``forward`` is the port's own end-to-end
-oracle over the FFT channelizer and sort-based medians, ``forward_planes``
-the complex-free form of it.  ``WidebandPdwPipeline`` is the detector
+oracle over the channelizer's default form (the FFT on the CPU, the
+channelizer kernel's complex form on the card, as ``method="auto"`` is in
+the JAX package) and sort-based medians, ``forward_planes`` the
+complex-free form of it.  ``WidebandPdwPipeline`` is the detector
 without a channelizer (``create_pdws.m``).
 
 Routes of the fused steps: ``"cm2"`` (and ``"auto"``, which means it) is the
@@ -106,7 +108,7 @@ class ChannelizerPipeline:
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, PdwBatch]:
         """The oracle step: complex capture -> (chan_iq (T, M), noise floor
-        (M,), PdwBatch) over the FFT channelizer."""
+        (M,), PdwBatch) over the channelizer's default form."""
         y = channelize(x, self.channelizer, device=self.device)
         nf = median(y.abs(), dim=0)
         batch = pdwmod.extract_pdws_channelized(y, self.pdw_cfg,

@@ -182,14 +182,22 @@ def _planes_source(xr, xi, taps_rev, bit_width, history) -> _Source:
                    xr.shape[0] // m)
 
 
-def _complex_source(x, taps_rev) -> _Source:
-    """A complex64 capture read in place as two float32 planes of stride 2."""
+def _complex_source(x, taps_rev, history=None) -> _Source:
+    """A complex64 capture read in place as two float32 planes of stride 2;
+    ``history``: the (P-1, M) complex64 frames before it, made into two
+    dense float32 planes, or None for zeros."""
     if x.dtype != torch.complex64 or x.ndim != 1 or not x.is_contiguous():
         raise TypeError("x must be a contiguous 1-D complex64 tensor")
     p, m = taps_rev.shape
     pairs = torch.view_as_real(x)
-    return _Source(_PLANES[torch.float32], pairs[:, 0], pairs[:, 1], None,
-                   None, 2, 1.0, p, m, x.shape[0] // m)
+    h0 = h1 = None
+    if history is not None:
+        if history.dtype != torch.complex64:
+            raise TypeError("history must be complex64 frames")
+        h0, h1 = (_check_history(h, pairs[:, 0], p, m)
+                  for h in (history.real, history.imag))
+    return _Source(_PLANES[torch.float32], pairs[:, 0], pairs[:, 1], h0,
+                   h1, 2, 1.0, p, m, x.shape[0] // m)
 
 
 def band_slice(w_parts, m: int):
@@ -725,12 +733,15 @@ def channelize_complex(
     taps_rev: np.ndarray,
     shift: bool = True,
     tile_frames: Optional[int] = None,
+    history: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Channelize a 1-D complex64 capture: ``(len(x) // M, M)`` complex64,
     equal to ``channelize(x, chan, method="dft")`` for ``taps_rev =
     chan.taps_rev``.  The capture is read in place, as two float32 planes
-    of stride 2; the four real products of the DFT run in the kernel."""
-    src = _complex_source(x, taps_rev)
+    of stride 2; the four real products of the DFT run in the kernel.
+    ``history``: the (P-1, M) complex64 frames before the block (a streamed
+    block's state), or None for the zeros a capture starts from."""
+    src = _complex_source(x, taps_rev, history)
     if not x.is_cuda:
         return torch.complex(*_planes_plain(src, taps_rev, shift))
     return _run_complex(src, taps_rev, shift, tile_frames)

@@ -190,7 +190,8 @@ def _time_major_tail(mesh: Mesh, cfg: PdwConfig, streams, nf, t_loc: int,
                 own_len=t_loc)
         else:
             out[s] = pdwmod.extract_pdws_block_core(
-                mag_e.T, ph_e.T, sat_e.T, nf[s], entry[s], t_loc, cfg)
+                mag_e.T, ph_e.T, sat_e.T, nf[s], entry[s], own_len=t_loc,
+                **pdwmod._core_kwargs(cfg))
     return out
 
 

@@ -9,10 +9,12 @@ import contextlib
 import importlib
 import importlib.util
 import io
+import itertools
 import json
 import math
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -197,6 +199,41 @@ def test_scaling_on_a_host_mesh_of_four(extra):
                                  if "--fixed-total" in extra
                                  else "scaling_efficiency")
     assert summary["unit"] == "1->4 devices"
+
+
+@pytest.mark.parametrize("extra", [[], ["--fused", "--fixed-total"]])
+def test_scaling_rates_never_read_zero_on_a_slow_clock(monkeypatch, extra):
+    """Every step "takes" seven seconds on a stand-in clock: a rate of a
+    few thousandths of a Msample/s, which a fixed decimal place printed as
+    0.0.  Each value is the exact rate, each efficiency 1."""
+    ticks = itertools.count(0.0, 7.0)
+    monkeypatch.setattr(bench_scaling, "time", types.SimpleNamespace(
+        perf_counter=lambda: next(ticks)))
+    frames = 2048
+    rc, out, _ = _run(bench_scaling.main, [
+        "--cpu-devices", "4", "--bands", str(M), "--frames-per-device",
+        str(frames), "--iters", "1", *extra])
+    assert rc == 0
+    lines = _json_lines(out)
+    assert len(lines) == 4
+    for line, nd in zip(lines, (1, 2, 4)):
+        shards = 4 if "--fixed-total" in extra else nd
+        assert line["value"] == pytest.approx(M * frames * shards / 7e6,
+                                              rel=1e-12)
+    for line in lines:
+        nums = [v for k, v in line.items() if k in (
+            "value", "vs_baseline", "scaling_efficiency",
+            "overhead_efficiency")]
+        assert len(nums) >= 2
+        assert all(math.isfinite(v) and v > 0 for v in nums), line
+    assert lines[-1]["value"] == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("x", [35969.5, 2.06, 0.47, 4e-2, 3e-5, 1e-9])
+def test_stage_line_numbers_keep_four_significant_digits(x):
+    text = f"{x:10.{bench.places(x)}f}".strip()
+    assert re.fullmatch(r"[0-9.]+", text)
+    assert float(text) == pytest.approx(x, rel=1e-3)
 
 
 def test_scaling_chan_split_meshes():

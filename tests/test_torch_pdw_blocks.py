@@ -128,7 +128,8 @@ def _block_core_pair(f0, own, halo, entry):
     got = tpdw.extract_pdws_block_core(
         torch.from_numpy(mag[sl].T.copy()), torch.from_numpy(ph[sl].T.copy()),
         torch.from_numpy(sat[sl].T.copy()), torch.from_numpy(nf),
-        torch.from_numpy(entry), own, PdwConfig.channelized(**ORACLE_KW))
+        torch.from_numpy(entry), own_len=own,
+        **tpdw._core_kwargs(PdwConfig.channelized(**ORACLE_KW)))
     return got, ref
 
 
@@ -156,7 +157,9 @@ def test_oracle_blocks_concatenate_to_the_whole_capture():
     cfg = PdwConfig.channelized(**ORACLE_KW)
     t = lambda x: torch.from_numpy(x.T.copy())  # noqa: E731
     whole = tpdw.extract_pdws_core(t(mag), t(ph), t(sat),
-                                   torch.from_numpy(nf), cfg)
+                                   torch.from_numpy(nf),
+                                   saturation_level=cfg.saturation_level,
+                                   **tpdw._core_kwargs(cfg))
     entry = torch.zeros(3, dtype=torch.bool)
     rows = [[] for _ in range(3)]
     for f0 in (0, 300, 600):
@@ -168,7 +171,8 @@ def test_oracle_blocks_concatenate_to_the_whole_capture():
                    torch.zeros((3, 1), dtype=torch.bool))
             streams = [torch.cat([s, p_], 1) for s, p_ in zip(streams, pad)]
         b = tpdw.extract_pdws_block_core(*streams, torch.from_numpy(nf),
-                                         entry, 300, cfg)
+                                         entry, own_len=300,
+                                         **tpdw._core_kwargs(cfg))
         a_blk, b_blk = tpdw.block_transfer(
             t(mag[f0:f0 + 300]), torch.from_numpy(nf)[:, None],
             cfg.snr_threshold_db, cfg.trailing_threshold_db)
