@@ -23,7 +23,15 @@ statistics kernel on the main path and route ``"cm"`` (``stats_batch``:
 PDWs bit for bit those of the per-slot kernel), event prediction (eight 80
 ms dwells at 56 Msps of a scanning beam, written by the recorder, through
 ``predict`` in-process, against its plain run, and through the CLI) and the
-closed-loop tracker (20 dwells synthesised on the card); then the capture
+closed-loop tracker (20 dwells synthesised on the card, the dwell staged and
+eager); then the staged steps (``staged``: the steps the JAX package
+compiles with ``jax.jit``, captured once a key as CUDA graphs and replayed,
+bit for bit their eager forms on the packed and float captures, routes
+``"cm"`` / ``"flat"``, ``step`` / ``step_planes``, wideband 16M, the eight
+``predict`` dwells and the 20 tracked dwells; the first call's outputs
+intact after later calls; the graph cache's hits, misses and bound; a
+capture with a host sync, which must raise; the staged dense step timed
+beside the eager one and the harness's graph); then the capture
 containers (``ingest_views``: the sparse capture as ``.iq``, converted by
 the CLI to a raw ``.npz``, a raw v5 ``.mat``, a raw v7.3 ``.mat`` and a
 normalised ``.npz``, each through the main path; ``channelize`` on the card,
@@ -216,6 +224,27 @@ def max_abs(a, b) -> float:
     d = (a.double() - b.double()).abs()
     d = torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d), d)
     return float(d.max()) if d.numel() else 0.0
+
+
+def outputs_identical(a, b, where: str) -> None:
+    """Two steps' outputs (tensors, tuples, ``PdwBatch``es) bit for bit."""
+    from sdr_channelizer_tpu_torch._staging import map_tensors
+
+    got, want = [], []
+    map_tensors(got.append, a)
+    map_tensors(want.append, b)
+    check(len(got) == len(want) > 0, f"{where}: {len(got)} outputs vs "
+                                     f"{len(want)}")
+    for i, (x, y) in enumerate(zip(got, want)):
+        check(x.shape == y.shape and x.dtype == y.dtype and same(x, y),
+              f"{where}: output {i} differs")
+
+
+def step_runs(staged, misses_before: int) -> int:
+    """How many times one call of ``staged`` ran its step on the card, its
+    ``misses`` read ``misses_before`` before it: the replay, and the eager
+    warm-up where the call captured."""
+    return 1 + staged.misses - misses_before
 
 
 def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -2117,14 +2146,16 @@ def wideband_capture(n: int, pri_sec: float, start_index: int, seed: int):
                                       np.complex64)
 
 
-def phase_wideband(rows, dwells: dict):
+def phase_wideband(rows, dwells: dict, seen: dict):
     """The wideband path at a real size: 16,000,000 complex samples through
     ``WidebandPdwPipeline.extract`` on the card, against the same call with
     the plain versions and against the generator's pulses; the fused
     one-channel streams, K2 (the floor), B7 and B8 at one channel against
     their plain versions, and timed (the fused form's and K2's rows carry
-    their readings at one ``predict`` dwell, ``dwells``); then 2^25 samples
-    through the blocked route, B8 a block, against the oracle extractor."""
+    their readings at one ``predict`` dwell, ``dwells``), the staged step
+    against the eager one (into ``seen``); then 2^25 samples through the
+    blocked route (eager: it compacts on the host), B8 a block, against the
+    oracle extractor."""
     import torch
 
     from sdr_channelizer_tpu_torch.config import PdwConfig
@@ -2171,9 +2202,16 @@ def phase_wideband(rows, dwells: dict):
     check(float(f_err.max()) <= 2e3, f"wideband: frequency off the "
                                      f"generator's by {f_err.max():.3g} Hz")
 
-    # the step with the capture on the card, and its parts one by one
+    # the step with the capture on the card, eager and staged (bit for bit
+    # the same), and its parts one by one
     x = torch.as_tensor(iq, device=DEVICE)
     step = time_ms(lambda: pipe.forward(x), reps=3, warmup=1)
+    outputs_identical(pipe.step(x), pipe.forward(x),
+                      "wideband 16M: staged step vs eager")
+    staged_step = time_ms(lambda: pipe.step(x), reps=3, warmup=1)
+    seen["wideband"] = {"samples": n, "pulses": len(got["toa"]),
+                        "staged_equals_eager": True, "step_ms": step,
+                        "staged_step_ms": staged_step}
     level = cfg.saturation_level
     mag, ph, sat = pdwmod._prep_streams(x, level)
     # the fused one-channel streams, on the capture (16-byte loads) and on a
@@ -2266,7 +2304,7 @@ def phase_wideband(rows, dwells: dict):
         "toa_err_samples": float(toa_err.max()),
         "pw_err_samples": float(pw_err.max()),
         "freq_err_hz": float(f_err.max()), "equals_plain": True,
-        "extract_s": wall, "step_ms": step,
+        "extract_s": wall, "step_ms": step, "staged_step_ms": staged_step,
         "msamples_per_s": n / step / 1e3, "peak_memory_bytes": peak,
         "launches": dict(launches), **parts}
     del x, mag, ph, sat, mag2, ph2, sat2, iq, plain, fused
@@ -2503,21 +2541,25 @@ def phase_routes(pipe, caps):
     iq = iqpacket.to_complex(samples, BIT_WIDTH)
     as_float = np.stack([iq.real, iq.imag], -1)
     reset()
+    misses = pipe._staged_forward_fused.misses
     got = pipe.extract_fused(as_float, 0, fs=fs)
-    check(counts()["channelize_cm2"] == 1, "float payload: the cm2 form on "
-                                           "planes was not launched")
+    check(counts()["channelize_cm2"] == step_runs(pipe._staged_forward_fused,
+                                                  misses),
+          "float payload: the cm2 form on planes was not launched")
     pdws_agree(got, ref, "float32 payload vs int16 payload")
     pdws_identical(got, ref, "float32 payload vs int16 payload")
     pdws_identical(pipe.extract(iq, fs=fs), ref,
                    "extract() of the complex capture vs int16 payload")
     # the complex-free step: B9, stream math in torch, the kernel tail
     reset()
+    misses = pipe._staged_forward_planes.misses
     t0 = time.perf_counter()
     planes = pipe.extract_planes(iq, fs=fs)
     wall = time.perf_counter() - t0
     seen = counts()
-    check(seen["channelize_complex"] == 1 and seen["cm_streams"] == 1,
-          f"extract_planes: launch counts {seen}")
+    runs = step_runs(pipe._staged_forward_planes, misses)
+    check(seen["channelize_complex"] == runs and seen["cm_streams"] == runs,
+          f"extract_planes: launch counts {seen}, {runs} runs")
     launches["channelize_complex"] = seen["channelize_complex"]
     check(abs(len(planes["toa"]) - len(ref["toa"]))
           <= DENSE_COUNT_BAND * len(ref["toa"]),
@@ -2609,9 +2651,10 @@ def routes_api_calls(pipe, caps) -> None:
 
 
 def phase_stats_batch(pipe, caps):
-    """B10 on its paths: ``extract_fused`` on both captures and route
-    ``"cm"`` with ``dsp.pdw._STATS_BATCH = 8``, bit for bit the PDWs of the
-    runs with 1 (K4); the steps timed in turns 1, 8, 8, 1."""
+    """B10 on its paths: ``extract_fused`` (a pipeline whose staged step is
+    captured with the knob set) on both captures and route ``"cm"`` with
+    ``dsp.pdw._STATS_BATCH = 8``, bit for bit the PDWs of the runs with 1
+    (K4); the steps timed in turns 1, 8, 8, 1."""
     import torch
 
     from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
@@ -2620,6 +2663,10 @@ def phase_stats_batch(pipe, caps):
     fs = M_MAIN * 1e6
     out = {}
     launches = {"pulse_stats_batched": 0, "pulse_stats_dense_batched": 0}
+    # a staged step reads the knob where it is captured (as jax.jit does
+    # where it traces): the batched run has a pipeline of its own
+    pipe8 = dataclasses.replace(pipe)
+    batched = pipe8._staged_forward_packed
     try:
         for name, samples in caps.items():
             xq = torch.as_tensor(pack(samples), device=pipe.device)
@@ -2630,11 +2677,12 @@ def phase_stats_batch(pipe, caps):
             ref_cm = pipe._finalize(batch, fs, 0.0, 0.0)
             pdwmod._STATS_BATCH = 8
             psk.launches_batched = psk.launches = 0
-            got = pipe.extract_fused(samples, BIT_WIDTH, fs=fs)
+            misses = batched.misses
+            got = pipe8.extract_fused(samples, BIT_WIDTH, fs=fs)
             torch.cuda.synchronize()
             n_b, n_k4 = psk.launches_batched, psk.launches
-            check(n_b == 2 and n_k4 == 0, f"stats_batch, {name}: B10 "
-                                          f"{n_b} / K4 {n_k4} launches")
+            check(n_b == 2 * step_runs(batched, misses) and n_k4 == 0,
+                  f"stats_batch, {name}: B10 {n_b} / K4 {n_k4} launches")
             pdws_identical(got, ref, f"stats_batch, {name}: 8 vs 1")
             psk.launches_dense_batched = psk.launches_dense = 0
             _, _, batch = pipe.forward_packed(xq, BIT_WIDTH, route="cm")
@@ -2664,11 +2712,12 @@ def phase_stats_batch(pipe, caps):
     return launches
 
 
-def phase_predict():
+def phase_predict(seen: dict):
     """``predict`` on the card: eight consecutive 80 ms dwells of the
     scanning beam at 56 Msps written by the port's recorder, through the
     CLI in a process of its own and in-process; the in-process run against
-    the same files with the plain versions, bit for bit."""
+    the same files with the plain versions, bit for bit; each dwell's
+    staged step against the eager one, bit for bit (into ``seen``)."""
     import torch
 
     from sdr_channelizer_tpu_torch.capture import EmulatedRadio
@@ -2704,8 +2753,10 @@ def phase_predict():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts(counts)
-        # every dwell makes its streams with the fused form, and none flips
-        check(launches["wideband_streams"] == PREDICT_FILES
+        # every dwell makes its streams with the fused form, and none flips;
+        # the dwells share one shape, so the staged step captures once, its
+        # eager warm-up one launch more
+        check(launches["wideband_streams"] == PREDICT_FILES + 1
               and launches["cm_streams"] == 0
               and all(n > 0 for key, n in launches.items()
                       if key != "cm_streams"),
@@ -2744,7 +2795,9 @@ def phase_predict():
               f"predict CLI: lines differ from the in-process run: "
               f"{got_lines[:3]} vs {want[:3]}")
 
-        # per file on the card: the capture loaded, then extract
+        # per file on the card: the capture loaded, then extract (its step
+        # staged: the first file's call captures it), then the dwell's
+        # staged step against the eager one, bit for bit
         pipe = WidebandPdwPipeline(cfg, DEVICE)
         per_file = []
         for path in files:
@@ -2754,8 +2807,17 @@ def phase_predict():
             pipe.extract(iq, fs=float(meta["fs"]))
             torch.cuda.synchronize()
             per_file.append(time.perf_counter() - t0)
+            outputs_identical(pipe.step(iq), pipe.forward(iq),
+                              f"predict {os.path.basename(path)}: staged "
+                              f"step vs eager")
+        check(pipe._staged_forward.misses == 1,
+              f"predict: {pipe._staged_forward.misses} captures for one "
+              f"dwell shape")
         x = torch.as_tensor(iq, device=DEVICE)
         step = time_ms(lambda: pipe.forward(x), reps=5)
+        staged_step = time_ms(lambda: pipe.step(x), reps=5)
+        seen["predict"] = {"dwells_staged_equal_eager": len(files),
+                           "step_ms": step, "staged_step_ms": staged_step}
     emit("predict", files=PREDICT_FILES, samples_per_file=rec.dwell_samples,
          fs=EVENT_FS, max_pulses=cfg.max_pulses,
          max_pulse_samples=cfg.max_pulse_samples,
@@ -2763,7 +2825,8 @@ def phase_predict():
          events=pred.events, next_event=records[-1][3] if records else None,
          equals_plain=True, cli_lines_equal=True, record_s=record_s,
          predict_files_s=wall, cli_s=cli_s, extract_s_per_file=per_file,
-         step_ms=step, longest_pulse_samples=int(round(
+         step_ms=step, staged_step_ms=staged_step,
+         staged_equals_eager=True, longest_pulse_samples=int(round(
              float(widths.max()) * EVENT_FS)) + 1, launches=launches)
     return {"pulse_stats_long_window": launches["pulse_stats_long_window"]}
 
@@ -3341,11 +3404,13 @@ def cards_main() -> int:
     return 0
 
 
-def phase_track():
+def phase_track(seen: dict):
     """The closed loop on the card: ``EventTracker`` on
     ``DeviceDwellEmitter`` in the dense scene, 20 dwells of 80 ms at 56
-    Msps; the step timed on the host clock with a CUDA sync; the scan period
-    recovered; one dwell's event core on the card against the CPU."""
+    Msps, the dwell staged, then the same 20 with the dwell eager: the same
+    reports (into ``seen``); each step timed on the host clock with a CUDA
+    sync; the scan period recovered; one dwell's event core on the card
+    against the CPU."""
     import torch
 
     from sdr_channelizer_tpu_torch.capture import (
@@ -3353,20 +3418,40 @@ def phase_track():
     from sdr_channelizer_tpu_torch.config import PdwConfig
     from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
 
-    def tracker():
-        return EventTracker(radio=DeviceDwellEmitter(
+    class EagerTracker(EventTracker):
+        """The tracker with its dwell's device work run eagerly."""
+
+        def _device_dwell(self, xr, xi):
+            return self.extract_planes(xr, xi)
+
+    def tracker(cls=EventTracker):
+        return cls(radio=DeviceDwellEmitter(
             sample_rate_sps=EVENT_FS, **DENSE_SCENE, device=DEVICE),
             dwell_sec=DWELL_SEC, device=DEVICE)
 
-    tracker().run(2)  # warm-up: allocator, first launches
-    tr = tracker()
-    steps, reports = [], []
-    for _ in range(TRACK_DWELLS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reports.append(tr.step())
-        torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0) * 1e3)
+    warm = tracker()
+    warm.run(2)  # warm-up: allocator, first launches, the dwell's capture
+    tracker(EagerTracker).run(2)
+    runs = {}
+    for label in ("staged", "eager"):
+        tr = tracker(EagerTracker if label == "eager" else EventTracker)
+        if label == "staged":
+            # the warm-up's staged dwell, captured at this tracker's key
+            tr._staged_dwell = warm._staged_dwell
+        steps, reports = [], []
+        for _ in range(TRACK_DWELLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reports.append(tr.step())
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        runs[label] = tr, steps, reports
+    check(warm._staged_dwell.misses == 1,
+          f"track: {warm._staged_dwell.misses} captures for one dwell shape")
+    check(runs["staged"][2] == runs["eager"][2],
+          "track: the staged dwells' reports differ from the eager ones")
+    eager_p50, eager_p95 = np.percentile(runs["eager"][1], [50, 95])
+    tr, steps, reports = runs["staged"]
     ev = np.asarray(tr.events)
     check(ev.size > 0, "track: no event fitted")
     period = SCAN["scan_period_sec"]
@@ -3389,15 +3474,175 @@ def phase_track():
           "track: event core mag differs between card and CPU")
     check(int(a.count) > 100, f"track: {int(a.count)} pulses in a dense dwell")
     p50, p95 = np.percentile(steps, [50, 95])
+    seen["track"] = {"dwells_reports_equal_eager": TRACK_DWELLS,
+                     "step_ms_p50": float(p50), "step_ms_p95": float(p95),
+                     "eager_step_ms_p50": float(eager_p50),
+                     "eager_step_ms_p95": float(eager_p95)}
     emit("track", dwells=TRACK_DWELLS, dwell_ms=DWELL_SEC * 1e3,
          samples=TRACK_DWELLS * n, fs=EVENT_FS, scene="dense",
          step_ms_p50=float(p50), step_ms_p95=float(p95), step_ms=steps,
+         eager_step_ms_p50=float(eager_p50),
+         eager_step_ms_p95=float(eager_p95), eager_step_ms=runs["eager"][1],
+         staged_reports_equal_eager=True,
          pulses=[r.num_pulses for r in reports], events=ev.tolist(),
          median_phase_err_s=float(np.median(err)),
          core_card_equals_cpu=True, core_pulses=int(a.count),
          core_mag_max_rel_err=float(np.max(np.abs(a.mag - b.mag)
                                            / np.maximum(np.abs(b.mag), 1e-30))),
          counters=tr.counters.snapshot()["counters"])
+
+
+STAGED_KERNELS = {"K1": "channelize_kernel", "K2": "nf_",
+                  "K3": "latch_scan_kernel", "K4": "pulse_stats_"}
+
+
+def phase_staged(caps, seen: dict, card: str) -> None:
+    """The staged steps (``_staging``: a CUDA graph a key, replayed) at the
+    main path's size on a pipeline of their own: the packed step
+    (``extract_fused``'s) and ``step_fused`` bit for bit their eager forms
+    on the dense and sparse captures; dense, sparse, dense again, the first
+    call's outputs intact; the graph cache's hits and misses (a new route,
+    bit width, shape; the bound); ``step`` / ``step_planes`` (B9 and the
+    oracle tail) on the sparse capture's complex samples; the wideband,
+    ``predict`` and ``track`` readings of their phases (``seen``); with
+    ``--profile`` a replay's kernels by name; a staged function with a host
+    sync, whose capture must raise; the staged dense step by CUDA events
+    over K = 120 calls beside the eager step and the harness's graph."""
+    import torch
+
+    from sdr_channelizer_tpu_torch import _staging, bench
+    from sdr_channelizer_tpu_torch.io import iqpacket
+
+    pipe = main_pipe()
+    packed_step = pipe._staged_forward_packed
+    xq = {name: torch.as_tensor(pack(s), device=pipe.device)
+          for name, s in caps.items()}
+    eager = {name: pipe.forward_packed(x, BIT_WIDTH) for name, x in xq.items()}
+    out = {}
+
+    # dense, sparse, dense again: each bit for bit the eager step, and the
+    # first call's outputs still so after the later calls
+    first = pipe._step_packed(xq["dense"], BIT_WIDTH)
+    second = pipe._step_packed(xq["sparse"], BIT_WIDTH)
+    third = pipe._step_packed(xq["dense"], BIT_WIDTH)
+    outputs_identical(second, eager["sparse"], "staged packed step, sparse")
+    outputs_identical(third, eager["dense"], "staged packed step, dense")
+    outputs_identical(first, pipe.forward_packed(xq["dense"], BIT_WIDTH),
+                      "staged packed step, the first call after two more")
+    ptrs = [t.data_ptr() for t in (*first[:2], first[2].toa_idx)]
+    check(not set(ptrs) & {t.data_ptr() for t in
+                           (*third[:2], third[2].toa_idx)},
+          "staged packed step: two calls share an output")
+    pulses = {name: int(eager[name][2].count.sum()) for name in caps}
+    check(pulses["dense"] == M_MAIN * pipe.pdw_cfg.max_pulses
+          and int(second[2].count.sum()) == pulses["sparse"] > 0,
+          f"staged packed step: pulses {pulses}")
+    for name, samples in caps.items():   # the host payload, copied once
+        pdws_identical(pipe.extract_fused(samples, BIT_WIDTH, fs=FS_MAIN),
+                       pipe._finalize(eager[name][2], FS_MAIN, 0.0, 0.0),
+                       f"extract_fused {name}: staged vs eager")
+    out["packed"] = {"pulses": pulses, "first_call_intact": True}
+    cache = {"after_dense_sparse_dense": (packed_step.hits,
+                                          packed_step.misses)}
+    check(cache["after_dense_sparse_dense"] == (4, 1),
+          f"staged packed step: hits, misses {cache}")
+
+    # step_fused on the captures' float planes (its cm2 route) and the
+    # staged forward_fused on routes cm and flat (jax.jit's route=)
+    planes = {}
+    for name, samples in caps.items():
+        iq = iqpacket.to_complex(samples, BIT_WIDTH)
+        planes[name] = tuple(torch.as_tensor(
+            np.ascontiguousarray(v, np.float32), device=pipe.device)
+            for v in (iq.real, iq.imag))
+        outputs_identical(pipe.step_fused(*planes[name]),
+                          pipe.forward_fused(*planes[name]),
+                          f"step_fused {name}: staged vs eager")
+    for route in ("cm", "flat"):
+        outputs_identical(
+            pipe._staged_forward_fused(*planes["dense"], bit_width=0,
+                                       route=route),
+            pipe.forward_fused(*planes["dense"], route=route),
+            f"staged forward_fused route {route}: vs eager")
+        outputs_identical(pipe._step_packed(xq["dense"], BIT_WIDTH, route),
+                          pipe.forward_packed(xq["dense"], BIT_WIDTH, route),
+                          f"staged packed step route {route}: vs eager")
+    cache["after_routes"] = (packed_step.hits, packed_step.misses)
+    outputs_identical(pipe._step_packed(xq["dense"], BIT_WIDTH - 1),
+                      pipe.forward_packed(xq["dense"], BIT_WIDTH - 1),
+                      "staged packed step, bit width 11: vs eager")
+    cache["after_bit_width_11"] = (packed_step.hits, packed_step.misses)
+    half = xq["dense"][: xq["dense"].numel() // 2]
+    outputs_identical(pipe._step_packed(half, BIT_WIDTH),
+                      pipe.forward_packed(half, BIT_WIDTH),
+                      "staged packed step, half the frames: vs eager")
+    cache["after_half_shape"] = (packed_step.hits, packed_step.misses)
+    pipe._step_packed(xq["dense"], BIT_WIDTH)
+    cache["dense_again"] = (packed_step.hits, packed_step.misses)
+    check(cache["after_routes"] == (4, 3)
+          and cache["after_bit_width_11"] == (4, 4)
+          and cache["after_half_shape"] == (4, 5)
+          and cache["dense_again"] == (4, 6)
+          and len(packed_step) == _staging.MAX_GRAPHS == 4,
+          f"staged packed step: hits, misses {cache}, {len(packed_step)} "
+          f"graphs kept")
+    cache["graphs_kept"] = len(packed_step)
+    out["cache"] = cache
+    del planes, half, first, second, third
+
+    # step and step_planes on the sparse capture's complex samples
+    iq = iqpacket.to_complex(caps["sparse"], BIT_WIDTH)
+    outputs_identical(pipe.step(iq), pipe.forward(iq),
+                      "step (B9, the oracle tail): staged vs eager")
+    xr, xi = (np.ascontiguousarray(v, np.float32) for v in (iq.real, iq.imag))
+    outputs_identical(pipe.step_planes(xr, xi), pipe.forward_planes(xr, xi),
+                      "step_planes: staged vs eager")
+    out["step_sparse"] = {"pulses": int(pipe.step(iq)[2].count.sum()),
+                          "staged_equals_eager": True,
+                          "step_planes_equals_eager": True}
+    out.update(seen)
+
+    if "--profile" in sys.argv[1:]:
+        names = [r["kernel"] for r in device_times(
+            lambda: pipe._step_packed(xq["dense"], BIT_WIDTH), 5)]
+        found = {k: any(v in n for n in names)
+                 for k, v in STAGED_KERNELS.items()}
+        check(all(found.values()), f"a replay's trace: {found} in {names}")
+        out["replay_kernels"] = names[:12]
+
+    # a host sync in a staged function: its capture raises; nothing runs
+    # it eagerly instead, and the card works on
+    def host_sync(x):
+        return x * x.sum().item()
+
+    bad = _staging.Staged(host_sync, pipe.device)
+    try:
+        bad(torch.ones(4, device=pipe.device))
+        raised = None
+    except _staging.StagingError as e:
+        raised = str(e)
+    check(raised is not None and "capture failed for key" in raised
+          and "(4,)" in raised and len(bad) == 0,
+          f"a capture with a host sync: {raised!r}")
+    torch.cuda.synchronize()
+    outputs_identical(pipe._step_packed(xq["dense"], BIT_WIDTH),
+                      eager["dense"], "staged packed step after a failed "
+                                      "capture")
+    out["failed_capture"] = raised[:300]
+
+    # the staged dense step by CUDA events over K consecutive calls, in
+    # turns with the eager step, beside the eager step as a graph
+    steps = {"staged": lambda: pipe._step_packed(xq["dense"], BIT_WIDTH),
+             "eager": lambda: pipe.forward_packed(xq["dense"], BIT_WIDTH)}
+    per, launch = bench.time_rounds(steps, 120, 3, pipe.device)
+    out["timing"] = {
+        "card": card, "k": 120, "rounds": 3,
+        "staged_ms": per["staged"], "eager_ms": per["eager"],
+        "host_launch_staged_ms": launch["staged"],
+        "host_launch_eager_ms": launch["eager"],
+        "device_step_ms": bench.graph_ms(steps["eager"], 120)}
+    emit("staged", bands=M_MAIN, frames=FRAMES_MAIN, bit_width=BIT_WIDTH,
+         **out)
 
 
 def profile_step(label: str, fn, steps: int = 5) -> None:
@@ -3923,8 +4168,9 @@ def bench_line_ok(line: dict, where: str) -> None:
 
 def phase_bench(pipe, caps):
     """The benchmark harness (``sdr_channelizer_tpu_torch.bench``) at its
-    full size, M = 64 x 262144 frames, in this process: the headline (K1,
-    K2 and K3 once a step, K4 twice, counted), its dense and sparse pulse
+    full size, M = 64 x 262144 frames, in this process: the headline (the
+    staged step, the eager one in turns; K1, K2 and K3 once a step, K4
+    twice, counted, replays included), its dense and sparse pulse
     counts against one ``forward_packed`` step of this run on the same
     capture; ``--stages`` (B5, B8, B7 and K4 counted) and ``--planes``;
     ``bench`` through the CLI in a fresh process; ``bench_scaling --fused``
@@ -3946,6 +4192,12 @@ def phase_bench(pipe, caps):
     host = re.search(r"^bench: host launches a dense step in ([0-9.]+) ms",
                      err, re.M)
     check(host is not None, "bench: no line of the host's launch time")
+    # the eager step, timed in turns with the staged headline
+    eager = re.search(r"^bench: eager dense ([0-9.]+) ms/step", err, re.M)
+    eager_host = re.search(r"^bench: host launches an eager dense step in "
+                           r"([0-9.]+) ms", err, re.M)
+    check(eager is not None and eager_host is not None,
+          "bench: no line of the eager step")
     for name in ("dense", "sparse"):
         got = head[f"{name}_pulses_per_step"]
         check(got == ref[name], f"bench: {got} {name} pulses a step, "
@@ -3992,6 +4244,8 @@ def phase_bench(pipe, caps):
           and scaling[0]["mesh"] == "1x1" and scaling[0]["value"] > 0,
           f"bench_scaling --fused: {scaling}")
     emit("bench", headline=head, host_launch_ms=float(host.group(1)),
+         eager_step_ms=float(eager.group(1)),
+         eager_host_launch_ms=float(eager_host.group(1)),
          launches=launches, forward_packed_pulses=ref,
          stages=stages, stage_launches=stage_launches,
          stages_headline_ms=staged["latency_p50_ms"],
@@ -4213,10 +4467,12 @@ def main() -> int:
         launches = phase_main_path(pipe, caps)
         launches.update(phase_streaming(pipe, caps))
         launches.update(phase_routes(pipe, caps))
-        launches.update(phase_wideband(rows, dwells))
+        seen = {}
+        launches.update(phase_wideband(rows, dwells, seen))
         launches.update(phase_stats_batch(pipe, caps))
-        launches.update(phase_predict())
-        phase_track()
+        launches.update(phase_predict(seen))
+        phase_track(seen)
+        phase_staged(caps, seen, card)
         if "--profile" in sys.argv[1:]:
             phase_profile(pipe, caps, rows)
             phase_profile_streaming(pipe, caps)

@@ -7,9 +7,10 @@ card, in complex Msamples/s.
 
 The counterpart of the JAX package's root ``bench.py``: the 64-band
 polyphase channelizer, the per-band median noise floor and PDW extraction
-(the ``create_pdws_channelized.m`` chain) through
-``ChannelizerPipeline.forward_packed`` on the raw recorder payload, at two
-operating points:
+(the ``create_pdws_channelized.m`` chain) through the staged
+``ChannelizerPipeline.forward_packed`` (the step ``extract_fused`` runs: a
+CUDA graph captured once and replayed, the counterpart of the JAX harness's
+jitted loop) on the raw recorder payload, at two operating points:
 
 * **dense**: full-scale tones mid-transition-band, so every channel's
   512-pulse slot capacity nearly fills with 1-2 sample edge transients
@@ -25,14 +26,18 @@ Timing protocol, on a CUDA card: the payloads go to the card first; a
 CUDA event is recorded before and after ``--iters`` (K) consecutive steps
 on the current stream, and the step is the elapsed time over K, so the
 host's launches overlap the device's work as they do in a stream of
-captures.  This repeats for ``--rounds`` (R) rounds, dense and sparse in
-turns within each round; ``value``, ``sparse_msps`` and ``latency_p50_ms``
-come from the median over rounds and ``rep_spread_pct`` is the dense
-rounds' (max - min) / median.  ``device_step_ms`` is one dense step
-captured as a CUDA graph and replayed K times between two events: the
-device's time without the host's launch overhead.  Pulse counts come from
-a warm-up step, outside the timed window.  On the CPU (``--cpu``, for
-tests) the host clock takes the events' place and there is no graph.
+captures.  This repeats for ``--rounds`` (R) rounds, the staged dense and
+sparse steps and the eager dense step (``forward_packed`` itself) in turns
+within each round; ``value``, ``sparse_msps`` and ``latency_p50_ms`` come
+from the staged steps' median over rounds and ``rep_spread_pct`` is the
+staged dense rounds' (max - min) / median.  The eager step's reading and
+the host's time to launch each step go to stderr.  ``device_step_ms`` is
+one eager dense step captured as a CUDA graph by the harness and replayed
+K times between two events: the device's time without the host's launches,
+the staged step's copy in and clones out.  Pulse counts come from the
+warm-up steps, outside the timed window, and the staged and eager steps'
+must agree.  On the CPU (``--cpu``, for tests) the host clock takes the
+events' place, there is no graph and the staged step is the eager one.
 
 Nothing falls back: without a card and without ``--cpu`` / ``--device
 cpu`` the run raises.  Prints exactly one JSON line to stdout; diagnostics
@@ -252,8 +257,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         ingest = "f32_planes"
         payload = {k: _planes(v, dev) for k, v in i16.items()}
 
-        def forward(key):
+        def eager(key):
             return pipe.forward_fused(*payload[key], bit_width=0)
+
+        def staged(key):
+            return pipe.step_fused(*payload[key], bit_width=0)
     else:
         # the recorder's int16 I/Q pairs viewed as one int32 plane:
         # deinterleave and Q11 dequantization happen in the kernel
@@ -262,8 +270,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             np.ascontiguousarray(v).view(np.int32).ravel(), device=dev)
             for k, v in i16.items()}
 
-        def forward(key):
+        def eager(key):
             return pipe.forward_packed(payload[key], bit_width=12)
+
+        def staged(key):
+            return pipe._step_packed(payload[key], bit_width=12)
 
     if args.stages:
         _stage_lines(pipe, i16["dense"], n, args.iters, args.rounds, dev)
@@ -271,26 +282,35 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.perf_counter()
     pulses = {}
     for key in payload:
-        for _ in range(WARMUP_STEPS):
-            pulses[key] = int(forward(key)[2].count.sum())
+        for _ in range(WARMUP_STEPS):   # the first staged call captures
+            pulses[key] = int(staged(key)[2].count.sum())
+        eager_pulses = int(eager(key)[2].count.sum())
+        if eager_pulses != pulses[key]:
+            raise RuntimeError(f"{key}: the staged step found "
+                               f"{pulses[key]} pulses, the eager step "
+                               f"{eager_pulses}")
     print(f"bench: warm-up {time.perf_counter() - t0:.1f} s", file=sys.stderr)
-    per, launch = time_rounds(
-        {key: (lambda key=key: forward(key)) for key in payload},
-        args.iters, args.rounds, dev)
+    steps = {key: (lambda key=key: staged(key)) for key in payload}
+    steps["eager dense"] = lambda: eager("dense")
+    per, launch = time_rounds(steps, args.iters, args.rounds, dev)
     dense_ms = statistics.median(per["dense"])
     sparse_ms = statistics.median(per["sparse"])
     spread = (max(per["dense"]) - min(per["dense"])) / dense_ms * 100.0
-    device_step_ms = (graph_ms(lambda: forward("dense"), args.iters)
+    device_step_ms = (graph_ms(lambda: eager("dense"), args.iters)
                       if dev.type == "cuda" else None)
     msps = n / dense_ms / 1e3
-    print(f"bench: dense  {dense_ms:.4f} ms/step ({pulses['dense']} pulses), "
-          f"device {device_step_ms} ms, rep spread {spread:.2f}%",
+    print(f"bench: dense  {dense_ms:.4f} ms/step staged ({pulses['dense']} "
+          f"pulses), device {device_step_ms} ms, rep spread {spread:.2f}%",
           file=sys.stderr)
-    print(f"bench: host launches a dense step in "
-          f"{statistics.median(launch['dense']):.4f} ms (rounds "
-          f"{', '.join(f'{x:.4f}' for x in launch['dense'])}; events "
-          f"{', '.join(f'{x:.4f}' for x in per['dense'])})", file=sys.stderr)
-    print(f"bench: sparse {sparse_ms:.4f} ms/step ({pulses['sparse']} "
+    print(f"bench: eager dense {statistics.median(per['eager dense']):.4f} "
+          f"ms/step", file=sys.stderr)
+    for step, a in (("dense", "a"), ("eager dense", "an")):
+        print(f"bench: host launches {a} {step} step in "
+              f"{statistics.median(launch[step]):.4f} ms (rounds "
+              f"{', '.join(f'{x:.4f}' for x in launch[step])}; events "
+              f"{', '.join(f'{x:.4f}' for x in per[step])})",
+              file=sys.stderr)
+    print(f"bench: sparse {sparse_ms:.4f} ms/step staged ({pulses['sparse']} "
           f"pulses)", file=sys.stderr)
     clock = "CUDA events" if dev.type == "cuda" else "host clock"
     print(json.dumps({
@@ -302,9 +322,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         "dense_pulses_per_step": pulses["dense"],
         "sparse_msps": n / sparse_ms / 1e3,
         "sparse_pulses_per_step": pulses["sparse"],
-        "protocol": f"{clock} around K={args.iters} consecutive steps, "
-                    f"median of R={args.rounds} rounds, dense and sparse "
-                    f"in turns",
+        "protocol": f"{clock} around K={args.iters} consecutive staged "
+                    f"steps, median of R={args.rounds} rounds, dense, "
+                    f"sparse and the eager dense step in turns",
         "rep_spread_pct": spread,
         "ingest": ingest,
         "device": name,

@@ -17,6 +17,10 @@ Per dwell (``usrp_predict_event.cpp:208-389``):
   median of event diffs (``:354-373``);
 * feedback: the next dwell is scheduled at ``next_event - dwell/2``
   (``:229-241``) so the beam peak lands mid-dwell.
+
+The dwell's device work is staged (``_staging``, the JAX package's jitted
+``_extract_planes``): captured once a dwell shape as a CUDA graph on the
+card and replayed, the packed fetch the dwell's one sync.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from sdr_channelizer_tpu_torch._device import resolve_device
+from sdr_channelizer_tpu_torch._staging import Staged
 from sdr_channelizer_tpu_torch.capture.hardware import DwellError
 from sdr_channelizer_tpu_torch.config import EventConfig, PdwConfig
 from sdr_channelizer_tpu_torch.dsp import events as eventsmod
@@ -67,37 +72,30 @@ class EventTracker:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self._staged_dwell = Staged(
+            _dwell_planes, self.device,
+            ("fs", "saturation_level", "snr_threshold_db", "max_pulses"))
+
+    def _dwell_args(self) -> dict:
+        """What a dwell's device work reads besides the planes, each a
+        static argument of the staged dwell: a change captures anew."""
+        return dict(fs=float(self.radio.sample_rate_sps),
+                    saturation_level=self.saturation_level,
+                    snr_threshold_db=self.pdw_cfg.snr_threshold_db,
+                    max_pulses=self.pdw_cfg.max_pulses)
 
     def extract_planes(self, xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-        """One dwell's device work on two float32 planes: the mean noise
-        floor (:288-289), the event core, the quadratic SNR-vs-TOA fit
-        (:28-52, :348-352), packed into one (3, max_pulses) float32 tensor.
-        Row 0 starts ``[count, saturated, event_time_rel]``; rows 1-2 are
-        the pulses' TOA indices (-1 where invalid) and SNRs."""
-        cfg = self.pdw_cfg
-        fs = float(self.radio.sample_rate_sps)
-        mag = torch.sqrt(xr * xr + xi * xi)
-        sat_mask = (xr.abs() >= self.saturation_level) | \
-            (xi.abs() >= self.saturation_level)
-        batch = pdwmod._extract_event_core(
-            mag, sat_mask, mag.mean(), cfg.snr_threshold_db, cfg.max_pulses)
-        toa_rel = (batch.toa_idx.to(torch.float32) + 1.0) / fs
-        event_rel = eventsmod.quadratic_peak_time_masked(
-            toa_rel, batch.snr_db, batch.valid)
-        # Whole-dwell saturation trips the gain feedback; the C++ flag is
-        # set on in-pulse samples only (:336-340), but a saturated sample is
-        # >= 0.9999 full scale and so inside a pulse for any plausible
-        # threshold: the same decisions.
-        head = torch.zeros(cfg.max_pulses, device=mag.device)
-        head[:3] = torch.stack([batch.count.to(torch.float32),
-                                sat_mask.any().to(torch.float32),
-                                event_rel.to(torch.float32)])
-        return torch.stack([
-            head,
-            torch.where(batch.valid, batch.toa_idx.to(torch.float32),
-                        torch.full((), -1.0, device=mag.device)),
-            batch.snr_db,
-        ])
+        """One dwell's device work on two float32 planes, eager: the mean
+        noise floor (:288-289), the event core, the quadratic SNR-vs-TOA
+        fit (:28-52, :348-352), packed into one (3, max_pulses) float32
+        tensor.  Row 0 starts ``[count, saturated, event_time_rel]``; rows
+        1-2 are the pulses' TOA indices (-1 where invalid) and SNRs.
+        :meth:`step` runs it staged."""
+        return _dwell_planes(xr, xi, **self._dwell_args())
+
+    def _device_dwell(self, xr, xi) -> torch.Tensor:
+        """The dwell's device work as :meth:`step` runs it: staged."""
+        return self._staged_dwell(xr, xi, **self._dwell_args())
 
     def step(self) -> DwellReport:
         fs = self.radio.sample_rate_sps
@@ -126,10 +124,11 @@ class EventTracker:
             # packed fetch below is the dwell's only transfer
             xr, xi = iq
         else:
+            # host planes, each copied once into the staged dwell's input
             iq = np.asarray(iq)
-            xr, xi = (torch.from_numpy(np.ascontiguousarray(v, np.float32))
-                      .to(self.device) for v in (iq.real, iq.imag))
-        packed = self.extract_planes(xr, xi).cpu().numpy()  # the one sync
+            xr, xi = (np.ascontiguousarray(v, np.float32)
+                      for v in (iq.real, iq.imag))
+        packed = self._device_dwell(xr, xi).cpu().numpy()  # the one sync
         n_pulses = int(packed[0, 0])
         sat = bool(packed[0, 1] > 0.5)
         self.counters.add("dwells")
@@ -163,3 +162,30 @@ class EventTracker:
 
     def run(self, num_dwells: int) -> List[DwellReport]:
         return [self.step() for _ in range(num_dwells)]
+
+
+def _dwell_planes(xr, xi, *, fs: float, saturation_level: float,
+                  snr_threshold_db: float, max_pulses: int) -> torch.Tensor:
+    """:meth:`EventTracker.extract_planes` with what it reads from the
+    tracker as arguments."""
+    mag = torch.sqrt(xr * xr + xi * xi)
+    sat_mask = (xr.abs() >= saturation_level) | (xi.abs() >= saturation_level)
+    batch = pdwmod._extract_event_core(mag, sat_mask, mag.mean(),
+                                       snr_threshold_db, max_pulses)
+    toa_rel = (batch.toa_idx.to(torch.float32) + 1.0) / fs
+    event_rel = eventsmod.quadratic_peak_time_masked(
+        toa_rel, batch.snr_db, batch.valid)
+    # Whole-dwell saturation trips the gain feedback; the C++ flag is set on
+    # in-pulse samples only (:336-340), but a saturated sample is >= 0.9999
+    # full scale and so inside a pulse for any plausible threshold: the same
+    # decisions.
+    head = torch.zeros(max_pulses, device=mag.device)
+    head[:3] = torch.stack([batch.count.to(torch.float32),
+                            sat_mask.any().to(torch.float32),
+                            event_rel.to(torch.float32)])
+    return torch.stack([
+        head,
+        torch.where(batch.valid, batch.toa_idx.to(torch.float32),
+                    torch.full((), -1.0, device=mag.device)),
+        batch.snr_db,
+    ])

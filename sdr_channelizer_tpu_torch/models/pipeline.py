@@ -18,6 +18,13 @@ channel-major route with the saturation as a running count; ``"cm"`` the
 channel-major route with the time-major magnitude beside it (the streamed
 block's form, single-shot); ``"flat"`` the time-major streams, flipped by
 the flip kernel in the tail.
+
+Staged steps (the JAX package's ``jax.jit`` sites, ``_staging``): ``step``,
+``step_planes`` and ``step_fused`` are ``forward``, ``forward_planes`` and
+``forward_fused`` captured once a key as CUDA graphs and replayed;
+``extract_fused`` runs a staged ``forward_packed`` (``bit_width`` and
+``route`` static).  ``forward*`` are the eager forms, and so is every call
+with ``plain=True``.  On the CPU a staged step calls its eager form.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from sdr_channelizer_tpu_torch._device import resolve_device, to_device
+from sdr_channelizer_tpu_torch._staging import Staged
 from sdr_channelizer_tpu_torch.config import PdwConfig
 from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
 from sdr_channelizer_tpu_torch.dsp.channelizer import (
@@ -75,6 +83,14 @@ class ChannelizerPipeline:
         if self.device.type == "cuda":
             # full-float32 products on the whole path
             torch.backends.cuda.matmul.allow_tf32 = False
+        # the JAX package's jax.jit wrappers (models/pipeline.py:186-193)
+        statics = ("bit_width", "route")
+        self._staged_forward = Staged(self.forward, self.device)
+        self._staged_forward_planes = Staged(self.forward_planes, self.device)
+        self._staged_forward_fused = Staged(self.forward_fused, self.device,
+                                            statics)
+        self._staged_forward_packed = Staged(self.forward_packed,
+                                             self.device, statics)
 
     @classmethod
     def create(
@@ -201,13 +217,25 @@ class ChannelizerPipeline:
             sat_level=self.pdw_cfg.saturation_level), ops)
 
     def step(self, x):
-        return self.forward(x)
+        """:meth:`forward`, staged."""
+        return self._staged_forward(x)
 
     def step_planes(self, xr, xi):
-        return self.forward_planes(xr, xi)
+        """:meth:`forward_planes`, staged."""
+        return self._staged_forward_planes(xr, xi)
 
     def step_fused(self, xr, xi, bit_width: int = 0):
-        return self.forward_fused(xr, xi, bit_width=bit_width)
+        """:meth:`forward_fused` on route ``"cm2"``, staged."""
+        self._check_products()   # as the eager form does; a replay cannot
+        return self._staged_forward_fused(xr, xi, bit_width=bit_width,
+                                          route="cm2")
+
+    def _step_packed(self, xq, bit_width: int, route: str = "auto"):
+        """:meth:`forward_packed`, staged: the JAX package's
+        ``_jit_forward_packed``."""
+        self._check_products()
+        return self._staged_forward_packed(xq, bit_width=bit_width,
+                                           route=_check_route(route))
 
     def _finalize(self, batch: PdwBatch, fs, fc, sample_start_time) -> dict:
         return pdwmod.finalize_pdws(
@@ -231,19 +259,24 @@ class ChannelizerPipeline:
 
         int16 payloads go as the packed int32 plane and int8 payloads as
         the packed int16 plane (views of the on-disk bytes); float payloads
-        go as two float32 planes."""
+        go as two float32 planes.  Each goes through the staged step, the
+        host payload copied straight into the graph's input; ``plain=True``
+        runs the eager step on the plain versions."""
         samples = np.ascontiguousarray(samples)
         if samples.ndim != 2 or samples.shape[1] != 2:
             raise ValueError("samples must be an (N, 2) I/Q payload")
         if samples.dtype in (np.int16, np.int8):
             wide = np.int32 if samples.dtype == np.int16 else np.int16
-            _, _, batch = self.forward_packed(
-                samples.view(wide).ravel(), bit_width=bit_width, plain=plain)
+            xq = samples.view(wide).ravel()
+            _, _, batch = (
+                self.forward_packed(xq, bit_width=bit_width, plain=True)
+                if plain else self._step_packed(xq, bit_width=bit_width))
         elif np.issubdtype(samples.dtype, np.floating):
             xr = np.ascontiguousarray(samples[:, 0], np.float32)
             xi = np.ascontiguousarray(samples[:, 1], np.float32)
-            _, _, batch = self.forward_fused(xr, xi, bit_width=bit_width,
-                                             plain=plain)
+            _, _, batch = (
+                self.forward_fused(xr, xi, bit_width=bit_width, plain=True)
+                if plain else self.step_fused(xr, xi, bit_width=bit_width))
         else:
             raise TypeError(f"samples must be int16, int8 or float, got "
                             f"{samples.dtype}")
@@ -261,7 +294,7 @@ class ChannelizerPipeline:
         iq = np.asarray(iq)
         xr = np.ascontiguousarray(iq.real, np.float32)
         xi = np.ascontiguousarray(iq.imag, np.float32)
-        _, _, _, batch = self.forward_planes(xr, xi)
+        _, _, _, batch = self.step_planes(xr, xi)
         return self._finalize(batch, fs, fc, sample_start_time)
 
     def extract(
@@ -284,7 +317,7 @@ class ChannelizerPipeline:
             samples = np.stack([iq.real, iq.imag], -1).astype(np.float32)
             return self.extract_fused(samples, bit_width=0, fs=fs, fc=fc,
                                       sample_start_time=sample_start_time)
-        _, _, batch = self.forward(x)
+        _, _, batch = self.step(x)
         return self._finalize(batch, fs, fc, sample_start_time)
 
 
@@ -299,7 +332,8 @@ class WidebandPdwPipeline:
     tail (the one-channel streams made from the capture in one kernel, the
     time-major latch and the statistics kernel at one channel; block by
     block from 2^24 samples on, with the flip kernel a block), on the CPU
-    the oracle tail.
+    the oracle tail.  ``step`` and ``extract`` replay a captured CUDA graph
+    of :meth:`forward` below 2^24 samples (``_staging``).
     """
 
     pdw_cfg: PdwConfig = dataclasses.field(default_factory=PdwConfig.wideband)
@@ -307,6 +341,8 @@ class WidebandPdwPipeline:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        # the JAX package's jax.jit wrapper (models/pipeline.py:308)
+        self._staged_forward = Staged(self.forward, self.device)
 
     @classmethod
     def from_reference(
@@ -328,7 +364,16 @@ class WidebandPdwPipeline:
         return pdwmod.extract_pdws_with_floor(x, self.pdw_cfg, ops=ops)
 
     def step(self, x) -> Tuple[torch.Tensor, PdwBatch]:
-        return self.forward(x)
+        """:meth:`forward`, staged below 2^24 samples.  From 2^24 samples
+        on the step stays eager: the blocked tail brings each block's
+        pulses to the host and compacts them there
+        (``dsp.pdw._extract_wideband_blocked``), which a graph cannot
+        hold."""
+        if not hasattr(x, "shape"):
+            x = np.asarray(x)
+        if x.shape[-1] >= pdwmod._WIDEBAND_BLOCKED_FROM:
+            return self.forward(x)
+        return self._staged_forward(x)
 
     def extract(
         self,
@@ -338,7 +383,8 @@ class WidebandPdwPipeline:
         sample_start_time: float = 0.0,
         plain: bool = False,
     ) -> dict:
-        """Complex capture -> host PDW dict."""
-        _, batch = self.forward(x, plain=plain)
+        """Complex capture -> host PDW dict, through :meth:`step` (or the
+        eager plain versions with ``plain=True``)."""
+        _, batch = self.forward(x, plain=True) if plain else self.step(x)
         return pdwmod.finalize_pdws(batch, fs=fs, fc=fc,
                                     sample_start_time=sample_start_time)

@@ -6,11 +6,23 @@ plain PyTorch version beside it.
 ``KERNELS`` and ``PLAIN`` name the kernel stages of the single-shot routes,
 of the streamed path and of the wideband path: the first holds the wrappers
 (the CUDA kernels for CUDA tensors), the second the plain PyTorch versions,
-which the checks run beside the kernels on the same device."""
+which the checks run beside the kernels on the same device.
+
+Each wrapper counts its launches in a module attribute named
+``launches*``; :func:`launch_counts` reads them all and
+:func:`add_launch_counts` adds to them (a replayed CUDA graph launches
+without running the wrappers, ``_staging``)."""
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
+from sdr_channelizer_tpu_torch.ops.cuda import (
+    channelizer_kernel,
+    latch_kernel,
+    nf_kernel,
+    pulse_stats_kernel,
+    transpose_kernel,
+)
 from sdr_channelizer_tpu_torch.ops.cuda.channelizer_kernel import (  # noqa: F401
     channelize_complex,
     channelize_complex_plain,
@@ -95,3 +107,20 @@ PLAIN = StageOps(channelize_streams_packed_cm2_plain, noise_floor_cm_plain,
                  channelize_complex_planes_plain, channelize_streams_cm2_plain,
                  channelize_streams_cm_plain, channelize_streams_plain,
                  wideband_streams_plain)
+
+
+_COUNTED = (channelizer_kernel, latch_kernel, nf_kernel, pulse_stats_kernel,
+            transpose_kernel)
+
+
+def launch_counts() -> Dict[Tuple[object, str], int]:
+    """Every wrapper's launch count, keyed ``(module, attribute)``."""
+    return {(mod, name): n for mod in _COUNTED for name, n in vars(mod).items()
+            if name.startswith("launches") and isinstance(n, int)}
+
+
+def add_launch_counts(delta: Dict[Tuple[object, str], int]) -> None:
+    """Add ``delta`` (keyed as :func:`launch_counts`) to the counts."""
+    for (mod, name), n in delta.items():
+        if n:
+            setattr(mod, name, getattr(mod, name) + n)

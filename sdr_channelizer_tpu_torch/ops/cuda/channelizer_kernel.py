@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sdr_channelizer_tpu_torch import _staging
 from sdr_channelizer_tpu_torch.ops.cuda import _build
 
 # times the kernel was launched in each form (either ingest)
@@ -421,7 +422,8 @@ def dft_fragments(m: int, shift: bool = True, w_parts=None) -> np.ndarray:
 def _device_weights(taps_rev, shift: bool, dev, w_parts=None):
     """The taps (columns padded with zeros to a multiple of 4) and the split
     DFT planes (or band slice) in fragment order on the device, kept from
-    call to call: set-up, not part of a step."""
+    call to call: set-up, not part of a step.  A graph captured with them
+    holds them (``_staging.keep_alive``)."""
     taps = np.ascontiguousarray(taps_rev, np.float32)
     key = (dev, shift, taps.shape, taps.tobytes(),
            None if w_parts is None else
@@ -436,6 +438,8 @@ def _device_weights(taps_rev, shift: bool, dev, w_parts=None):
         hit = tuple(torch.as_tensor(a, device=dev)
                     for a in (padded, dft_fragments(m, shift, w_parts)))
         _weights[key] = hit
+    # a captured step reads them by address after the cache may drop them
+    _staging.keep_alive(*hit)
     return hit
 
 
