@@ -11,10 +11,14 @@ then the streamed path (four contiguous ``.iq`` files of 16,777,216 samples
 each -> blocks of 65536 frames through the channelizer's cm form, the
 time-major latch and the statistics with the saturation mask, with
 checkpoint and resume) and holds it against single-shot extraction of the
-same samples; then the wideband path (``WidebandPdwPipeline`` on 16,000,000
-complex samples through the fused one-channel streams, the time-major latch
-and the statistics at one channel, and 33,554,432 samples block by block,
-the flip kernel a block, against the oracle extractor), the single-shot
+same samples, its block steps and the floor's count passes staged (CUDA
+graphs, the JAX package's ``jax.jit`` sites) and eager in turns, bit for
+bit, and the oracle forms ``extract_segment`` / ``extract`` staged and
+eager on one file; then the wideband path (``WidebandPdwPipeline`` on
+16,000,000 complex samples through the fused one-channel streams, the
+time-major latch and the statistics at one channel, and 33,554,432 samples
+block by block, the flip kernel a block, against the oracle extractor, each
+block's step staged and eager bit for bit), the single-shot
 routes ``"flat"`` and ``"cm"`` against
 ``"cm2"``, float payloads and the complex-free step, and the JAX package's
 call forms (``routes_api_calls``: ``chan(x)``, a (3, N) batch and
@@ -1989,11 +1993,48 @@ def pdws_identical(a: dict, b: dict, where: str) -> None:
               f"{where}: {key} is not bit-identical")
 
 
+STREAM_STEPS = ("fused_block", "floor_block", "nf_count_le", "nf_finish")
+
+
+def staged_counts(ext, names=STREAM_STEPS) -> dict:
+    """``{step: (hits, misses, graphs kept)}`` of an extractor's staged
+    steps."""
+    return {n: (s.hits, s.misses, len(s)) for n in names
+            for s in [getattr(ext, f"_staged_{n}")]}
+
+
+def stream_wall(fn) -> tuple:
+    """One streamed run on the host clock, ended by a device synchronise:
+    ``(seconds, result)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t_start, res
+
+
+def in_turns(eager, staged, same) -> dict:
+    """``eager()`` and ``staged()`` in turns (eager, staged, staged, eager),
+    each run's result handed to ``same(result, which)``: ``{"eager":
+    [s, s], "staged": [s, s]}`` by :func:`stream_wall`."""
+    walls = {"eager": [], "staged": []}
+    for which in ("eager", "staged", "staged", "eager"):
+        dt, res = stream_wall(eager if which == "eager" else staged)
+        walls[which].append(dt)
+        same(res, which)
+    return walls
+
+
 def phase_streaming(pipe, caps):
     """The streamed path at full width: the sparse capture four times over
     as four contiguous files (67,108,864 samples, 16 blocks), held against
     single-shot extraction of the same samples, its plain run and its own
-    resume; then the dense capture as one file."""
+    resume; its staged steps (a graph a key: three block keys, two of the
+    floor pass, one a count pass) against the eager run in turns, bit for
+    bit; then the oracle forms staged and eager on one file, and the dense
+    capture as one file."""
     import torch
 
     from sdr_channelizer_tpu_torch.config import PdwConfig
@@ -2020,16 +2061,28 @@ def phase_streaming(pipe, caps):
 
         reset_stream_counts()
         torch.cuda.reset_peak_memory_stats()
-        t_start = time.perf_counter()
-        got = ext.extract_segment_fused(seg, checkpoint_dir=ck)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
+        wall, got = stream_wall(
+            lambda: ext.extract_segment_fused(seg, checkpoint_dir=ck))
         launches = stream_counts()
         peak = torch.cuda.max_memory_allocated()
+        # (f) every step staged: the keys are the first block (no history),
+        # the middle ones and the last (no halo); the floor pass's first
+        # and the rest; one a count pass.  Each key captured once, every
+        # later block a replay
+        keys = {"fused_block": 3, "floor_block": 2, "nf_count_le": 1,
+                "nf_finish": 1}
+        calls = {"fused_block": n_blocks, "floor_block": n_blocks,
+                 "nf_count_le": 8 * n_blocks, "nf_finish": n_blocks}
+        cache = staged_counts(ext)
+        check(cache == {n: (calls[n] - keys[n], keys[n], keys[n])
+                        for n in keys},
+              f"streaming: staged hits, misses, graphs {cache}")
         # (e) floor pass and detect pass of every block went through B6, the
-        # detect pass through B7 and both statistics tiers
-        check(launches["channelize_streams_packed_cm"] == 2 * n_blocks
-              and launches["latch_cumsums"] == n_blocks
+        # detect pass through B7 and both statistics tiers; a capture adds
+        # its eager warm-up to the replays
+        check(launches["channelize_streams_packed_cm"]
+              == 2 * n_blocks + keys["fused_block"] + keys["floor_block"]
+              and launches["latch_cumsums"] == n_blocks + keys["fused_block"]
               and launches["pulse_stats_dense"] >= n_blocks,
               f"streaming: launch counts {launches} for {n_blocks} blocks")
         check(ext.counters.get("nf_device_count_d2h_bytes") > 0,
@@ -2083,16 +2136,40 @@ def phase_streaming(pipe, caps):
             vals = got[key]
             ok = np.isfinite(vals) | (np.isnan(vals) if key == "freq" else False)
             check(bool(ok.all()), f"streaming: non-finite {key}")
+        # (g) the staged run against the eager one, in turns, without a
+        # checkpoint: bit for bit, and no key captured again
+        eager = StreamingExtractor(pipe.channelizer, cfg,
+                                   block_frames=BLOCK_FRAMES, device=DEVICE)
+        eager._eager = True
+        walls = in_turns(
+            lambda: eager.extract_segment_fused(seg),
+            lambda: ext.extract_segment_fused(seg),
+            lambda res, which: pdws_identical(
+                res, got, f"streaming, {which} run vs the first"))
+        check(all(s.misses == 0 and len(s) == 0 for s in
+                  (getattr(eager, f"_staged_{n}") for n in STREAM_STEPS)),
+              "streaming: the eager run went through a staged step")
+        after = staged_counts(ext)
+        check(after == {n: (calls[n] * 3 - keys[n], keys[n], keys[n])
+                        for n in keys},
+              f"streaming: a staged key captured again: {after}")
         out["sparse_four_files"] = {
             "files": STREAM_FILES, "samples": n, "blocks": n_blocks,
             "pulses": len(got["toa"]), "pulses_plain": len(plain["toa"]),
             "equals_single_shot": True, "equals_plain": True,
             "resume_bit_identical": True, "blocks_resumed": n_resumed,
             "noise_floor_equals_single_shot": True,
+            "staged_equals_eager": True,
             "wall_s": wall, "msamples_per_s": n / wall / 1e6,
+            "walls_no_checkpoint_s": walls,
+            "msamples_per_s_no_checkpoint": {
+                k: [n / w / 1e6 for w in v] for k, v in walls.items()},
+            "staged_hits_misses_graphs": after,
             "peak_memory_bytes": peak, "launches": dict(launches),
             "counters": ext.counters.snapshot()["counters"]}
-        del plain, resumed
+        del plain, resumed, eager
+        out["floor_pass"] = floor_pass_turns(ext, seg)
+        out["oracle_one_file"] = oracle_turns(pipe, caps, fs, t0)
 
     # the dense capture as one file: every channel at its slot cap in every
     # block, all pulses short, so max_pulse_samples = 128 holds them and the
@@ -2103,10 +2180,22 @@ def phase_streaming(pipe, caps):
         write_segment(tmp, [caps["dense"]], fs, t0)
         seg = CaptureSet.from_dir(tmp).segments[0]
         reset_stream_counts()
-        got = StreamingExtractor(
-            pipe.channelizer, dcfg, block_frames=BLOCK_FRAMES,
-            device=DEVICE).extract_segment_fused(seg)
+        dense_ext = StreamingExtractor(pipe.channelizer, dcfg,
+                                       block_frames=BLOCK_FRAMES,
+                                       device=DEVICE)
+        dense_wall, got = stream_wall(
+            lambda: dense_ext.extract_segment_fused(seg))
         dense_launches = stream_counts()
+        dense_eager = StreamingExtractor(pipe.channelizer, dcfg,
+                                         block_frames=BLOCK_FRAMES,
+                                         device=DEVICE)
+        dense_eager._eager = True
+        dense_walls = in_turns(
+            lambda: dense_eager.extract_segment_fused(seg),
+            lambda: dense_ext.extract_segment_fused(seg),
+            lambda res, which: pdws_identical(
+                res, got, f"streaming, dense {which} run"))
+        del dense_ext, dense_eager
         plain = StreamingExtractor(
             pipe.channelizer, dcfg, block_frames=BLOCK_FRAMES, device=DEVICE,
             plain=True).extract_segment_fused(seg)
@@ -2120,13 +2209,105 @@ def phase_streaming(pipe, caps):
         "samples": seg.num_samples,
         "blocks": FRAMES_MAIN // BLOCK_FRAMES, "pulses": len(got["toa"]),
         "pulses_plain": len(plain["toa"]),
-        "saturated": int(got["sat"].sum()), "launches": dense_launches}
+        "saturated": int(got["sat"].sum()), "launches": dense_launches,
+        "wall_s": dense_wall, "walls_s": dense_walls,
+        "staged_equals_eager": True}
     launches["pulse_stats_sat"] = dense_launches["pulse_stats_sat"]
     emit("streaming", bands=M_MAIN, block_frames=BLOCK_FRAMES,
          halo_frames=HALO_FRAMES, bit_width=BIT_WIDTH,
          max_pulses=cfg.max_pulses,
          max_pulse_samples=cfg.max_pulse_samples, **out)
     return launches
+
+
+def floor_pass_turns(ext, seg) -> dict:
+    """The streamed floor's count passes alone, over the block magnitudes
+    of one more staged run of ``ext`` on ``seg``, resident on the card:
+    staged (``ext``'s graphs, already captured) and eager in turns, the
+    same floor, by the host clock ended by a synchronise."""
+    mags = []
+    measure = ext._noise_floor_device
+
+    def keep(make_mag_blocks_dev, est_bytes=None):
+        mags.extend(make_mag_blocks_dev())
+        return measure(lambda: iter(mags), est_bytes)
+
+    ext._noise_floor_device = keep
+    try:
+        ext.extract_segment_fused(seg)
+    finally:
+        del ext._noise_floor_device
+    before = staged_counts(ext)
+    floors = []
+
+    def floor(eager: bool):
+        ext._eager = eager
+        return ext._noise_floor_device(lambda: iter(mags))
+
+    walls = in_turns(lambda: floor(True), lambda: floor(False),
+                     lambda nf, which: floors.append(nf))
+    ext._eager = False
+    check(all(np.array_equal(f, floors[0]) for f in floors),
+          "streaming floor pass: staged and eager floors differ")
+    after = staged_counts(ext)
+    check(all(after[n][1:] == before[n][1:] for n in after),
+          f"streaming floor pass: a key captured again: {after}")
+    return {"blocks": len(mags), "staged_equals_eager": True,
+            "ms": {k: [w * 1e3 for w in v] for k, v in walls.items()}}
+
+
+def oracle_turns(pipe, caps, fs: float, t0: float) -> dict:
+    """The oracle forms on one file of the sparse capture (4 blocks):
+    ``extract_segment`` and ``extract`` through their staged block step and
+    eagerly, in turns, bit for bit; two keys (a block with its halo, the
+    last with the +inf pad), shared by both."""
+    from sdr_channelizer_tpu_torch.dsp.streaming import (
+        CaptureSet, StreamingExtractor)
+
+    cfg = pipe.pdw_cfg
+    with tempfile.TemporaryDirectory() as tmp:
+        write_segment(tmp, [caps["sparse"]], fs, t0)
+        seg = CaptureSet.from_dir(tmp).segments[0]
+        n_blocks = seg.num_samples // M_MAIN // BLOCK_FRAMES
+        ext = StreamingExtractor(pipe.channelizer, cfg,
+                                 block_frames=BLOCK_FRAMES, device=DEVICE)
+        ck = os.path.join(tmp, "ck")
+        wall, ref = stream_wall(lambda: ext.extract_segment(
+            seg, checkpoint_dir=ck))
+        nf = np.load(os.path.join(ck, "noise_floor.npz"))["nf"]
+        eager = StreamingExtractor(pipe.channelizer, cfg,
+                                   block_frames=BLOCK_FRAMES, device=DEVICE)
+        eager._eager = True
+
+        def blocks():
+            return seg.iter_samples(BLOCK_FRAMES * M_MAIN)
+
+        runs = {
+            "extract_segment": lambda e: e.extract_segment(
+                seg, noise_floor=nf),
+            "extract": lambda e: e.extract(blocks, fs, sample_start_time=t0,
+                                           noise_floor=nf)}
+        walls, firsts = {}, {}
+        for name, run in runs.items():
+            def same(res, which, name=name):
+                firsts.setdefault(name, res)
+                pdws_identical(res, firsts[name],
+                               f"streaming oracle, {name} {which} run")
+
+            walls[name] = in_turns(lambda: run(eager), lambda: run(ext), same)
+        pdws_identical(firsts["extract_segment"], ref,
+                       "streaming oracle: extract_segment with its floor")
+        detect = ext._staged_detect_block
+        check((detect.misses, len(detect)) == (2, 2)
+              and detect.hits == 5 * n_blocks - 2
+              and eager._staged_detect_block.misses == 0,
+              f"streaming oracle: hits, misses {detect.hits}, "
+              f"{detect.misses}")
+        return {"samples": seg.num_samples, "blocks": n_blocks,
+                "pulses": {k: len(v["toa"]) for k, v in firsts.items()},
+                "staged_equals_eager": True, "first_wall_s": wall,
+                "walls_s": walls, "detect_hits_misses": (detect.hits,
+                                                         detect.misses)}
 
 
 def wideband_capture(n: int, pri_sec: float, start_index: int, seed: int):
@@ -2154,8 +2335,9 @@ def phase_wideband(rows, dwells: dict, seen: dict):
     their plain versions, and timed (the fused form's and K2's rows carry
     their readings at one ``predict`` dwell, ``dwells``), the staged step
     against the eager one (into ``seen``); then 2^25 samples through the
-    blocked route (eager: it compacts on the host), B8 a block, against the
-    oracle extractor."""
+    blocked route, B8 a block, against the oracle extractor, and its staged
+    step (a graph a block: it compacts on the host) bit for bit the eager
+    one, in turns."""
     import torch
 
     from sdr_channelizer_tpu_torch.config import PdwConfig
@@ -2339,7 +2521,42 @@ def phase_wideband(rows, dwells: dict, seen: dict):
           f"wideband, blocked: launch counts {blocked_launches}")
     check(same(nf.reshape(1), k.noise_floor_cm_plain(x.abs()[None], n)),
           "K2 at 2^25 samples: differs from plain")
-    step = time_ms(lambda: pipe.forward(x), reps=3, warmup=1)
+    # the staged step: each block's step a graph (two keys: the blocks with
+    # a halo, the last with its +inf pad), bit for bit the eager step; on
+    # the second call every block a replay, B8 at one channel in each
+    blk_step = pipe._staged_block
+    torch.cuda.reset_peak_memory_stats()
+    outputs_identical(pipe.step(x), (nf, batch),
+                      "wideband, blocked: staged step vs eager")
+    staged_peak = torch.cuda.max_memory_allocated()
+    reset_counts(WIDEBAND_COUNTS)
+    outputs_identical(pipe.step(x), (nf, batch),
+                      "wideband, blocked: staged step, all replays")
+    replay_launches = read_counts(WIDEBAND_COUNTS)
+    check((blk_step.hits, blk_step.misses, len(blk_step))
+          == (2 * n_blocks - 2, 2, 2)
+          and replay_launches == blocked_launches,
+          f"wideband, blocked: staged hits, misses {blk_step.hits}, "
+          f"{blk_step.misses}, launches {replay_launches}")
+    steps_ms = {"eager": [], "staged": []}
+    for which in ("eager", "staged", "staged", "eager"):
+        steps_ms[which].append(time_ms(
+            (lambda: pipe.forward(x)) if which == "eager"
+            else (lambda: pipe.step(x)), reps=3, warmup=1))
+    step = steps_ms["eager"][0]
+    replay_kernels = None
+    if "--profile" in sys.argv[1:]:
+        # one block's replay alone: B8's one-channel pass inside the graph
+        h1 = block + cfg.max_pulse_samples
+        mag, ph, sat = pdwmod._prep_streams(x, level)
+        entry = torch.zeros(1, dtype=torch.bool, device=DEVICE)
+        replay_kernels = [r["kernel"] for r in device_times(
+            lambda: blk_step(mag[:h1], ph[:h1], sat[:h1], nf.reshape(1),
+                             entry, own_len=block, end=False), 3)]
+        check(any("dph_1ch_kernel" in r for r in replay_kernels),
+              f"wideband, blocked: no dph_1ch_kernel in a replayed block: "
+              f"{replay_kernels}")
+        del mag, ph, sat
     ref = pdwmod.extract_pdws(x, cfg, noise_floor=nf, stats="xla")
     got_b, ref_b = pdwmod.batch_to_host(batch), pdwmod.batch_to_host(ref)
     for key in ("toa_idx", "te_idx", "pw_sec", "saturated", "valid", "count"):
@@ -2401,7 +2618,12 @@ def phase_wideband(rows, dwells: dict, seen: dict):
         "mag_equals_oracle_bit_for_bit": bool(
             np.array_equal(got_b.mag, ref_b.mag)),
         "step_ms": step, "msamples_per_s": n / step / 1e3,
-        "peak_memory_bytes": peak, "launches": blocked_launches}
+        "steps_ms_in_turns": steps_ms, "staged_equals_eager": True,
+        "staged_hits_misses": (blk_step.hits, blk_step.misses),
+        "replay_launches": replay_launches,
+        "replayed_block_kernels": replay_kernels,
+        "peak_memory_bytes": peak, "staged_peak_memory_bytes": staged_peak,
+        "launches": blocked_launches}
     del x, batch, ref
     torch.cuda.empty_cache()
     emit("wideband", max_pulses=cfg.max_pulses,
@@ -3715,8 +3937,10 @@ def phase_profile_streaming(pipe, caps):
     """Only with ``--profile``: where a streamed block's time goes.  One
     file of the sparse capture (4 blocks); the steps of block 1 of the
     detect pass one by one on the host clock, each ended by a device
-    synchronise (median of 5); then the device time by kernel name over one
-    whole ``extract_segment_fused``, from ``torch.profiler``."""
+    synchronise (median of 5), and the whole block step staged and eager
+    (a replay's kernels by name: B6, B7, K4); then the device time by
+    kernel name over one whole ``extract_segment_fused``, from
+    ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3787,6 +4011,24 @@ def phase_profile_streaming(pipe, caps):
                for f in dataclasses.fields(pdwmod.PdwBatch)}))
         # "tail" is the whole block tail: latch, search, statistics, masks
         steps["search_stats_rest_ms"] = steps["tail_ms"] - steps["latch_ms"]
+        # the staged block step (B6, the tail and the transfer, one graph
+        # replayed, its inputs copied in and outputs cloned) beside them
+        staged = ext._staged_fused_block
+
+        def staged_block():
+            return staged(hist, blk, nf, entry, own_len=t_k,
+                          bit_width=BIT_WIDTH)
+
+        staged_block()
+        steps["staged_block_ms"], _ = clock(staged_block)
+        steps["eager_block_ms"], _ = clock(lambda: ext._fused_block(
+            hist, blk, nf, entry, own_len=t_k, bit_width=BIT_WIDTH))
+        replay = [r["kernel"] for r in device_times(staged_block, 3)]
+        found = {name: any(name in r for r in replay) for name in
+                 ("channelize_kernel", "latch_scan_kernel", "pulse_stats_")}
+        check(all(found.values()),
+              f"profile_streaming: a replayed block's trace: {found} in "
+              f"{replay}")
 
         ext.extract_segment_fused(seg)  # warm
         torch.cuda.synchronize()
@@ -3809,7 +4051,8 @@ def phase_profile_streaming(pipe, caps):
     rows.sort(key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
     emit("profile_streaming", capture="sparse, one file, 4 blocks",
-         block_steps_ms=steps, run_wall_ms_under_profiler=wall_ms,
+         block_steps_ms=steps, replayed_block_kernels=replay,
+         run_wall_ms_under_profiler=wall_ms,
          device_busy_ms=busy, kernels=rows[:14],
          rest_ms=sum(r["ms"] for r in rows[14:]))
 
@@ -4253,6 +4496,37 @@ def phase_bench(pipe, caps):
          wall_s=time.perf_counter() - t0)
 
 
+@contextlib.contextmanager
+def extractors_made():
+    """The ``StreamingExtractor``s made inside the block, in a list."""
+    from sdr_channelizer_tpu_torch.dsp import streaming
+
+    made = []
+    init = streaming.StreamingExtractor.__post_init__
+
+    def keep(self):
+        init(self)
+        made.append(self)
+
+    streaming.StreamingExtractor.__post_init__ = keep
+    try:
+        yield made
+    finally:
+        streaming.StreamingExtractor.__post_init__ = init
+
+
+def staged_calls(made: list, names) -> dict:
+    """``{step: [hits, misses]}`` over the extractors ``made``; fails unless
+    each step ran staged on the card, every call a hit or a capture."""
+    out = {n: [sum(getattr(e, f"_staged_{n}").hits for e in made),
+               sum(getattr(e, f"_staged_{n}").misses for e in made)]
+           for n in names}
+    check(bool(made) and all(m > 0 and not e._eager for n, (h, m) in
+                             out.items() for e in made),
+          f"cli --stream: the staged steps did not run: {out}")
+    return out
+
+
 def phase_cli():
     """A synthetic ``.iq`` file through ``pdw --channelized`` on the card,
     then the same samples as two files through ``pdw --stream``, then
@@ -4286,11 +4560,21 @@ def phase_cli():
                 sample_start_time=hdr.sample_start_time
                 + i * half / hdr.sample_rate_sps), part)
         out = os.path.join(tmp, "pdw_stream.npz")
-        rc = main(["pdw", *parts, "--stream", "--channelized",
-                   "--block-frames", "1024", "--checkpoint-dir",
-                   os.path.join(tmp, "ck"), "--out", out] + common)
+        with extractors_made() as made:
+            rc = main(["pdw", *parts, "--stream", "--channelized",
+                       "--block-frames", "1024", "--checkpoint-dir",
+                       os.path.join(tmp, "ck"), "--out", out] + common)
         check(rc == 0, f"cli --stream: exit code {rc}")
+        stream_staged = staged_calls(made, ("fused_block", "floor_block"))
         ps = dict(np.load(out))
+        out = os.path.join(tmp, "pdw_stream_wide.npz")
+        with extractors_made() as made:
+            rc = main(["pdw", *parts, "--stream", "--max-pulses", "64",
+                       "--max-pulse-samples", "8192", "--block-frames",
+                       "65536", "--device", DEVICE, "--out", out])
+        check(rc == 0, f"cli wideband --stream: exit code {rc}")
+        stream_staged.update(staged_calls(made, ("detect_block",)))
+        psw = dict(np.load(out))
 
         out = os.path.join(tmp, "pdw_wide.npz")
         rc = main(["pdw", path, "--max-pulses", "64", "--max-pulse-samples",
@@ -4345,6 +4629,7 @@ def phase_cli():
     check(float(np.abs(p["pw"][sel] - spec.pulse_width_sec).max()) < 12e-6,
           "cli: pulse width off the truth")
     pdws_agree(ps, p, "cli --stream vs cli")
+    pdws_agree(psw, pw, "cli wideband --stream vs cli wideband")
     check(len(pw["toa"]) == len(starts),
           f"cli wideband: {len(pw['toa'])} pulses, {len(starts)} sent")
     check(float(np.abs(pw["toa"] - 1723800000.0 - want).max()) < 0.5e-6
@@ -4353,6 +4638,8 @@ def phase_cli():
           "cli wideband: TOA, width or frequency off the truth")
     emit("cli", pulses=int(len(p["toa"])), in_tone_bin=int(sel.sum()),
          sent=int(len(starts)), stream_pulses=int(len(ps["toa"])),
+         stream_staged_hits_misses=stream_staged,
+         stream_wideband_pulses=int(len(psw["toa"])),
          wideband_pulses=int(len(pw["toa"])), recorded=len(recorded),
          predict=predicted.splitlines()[-1], track=tracked, views=views,
          skipped=skipped)

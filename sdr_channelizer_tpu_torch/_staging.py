@@ -26,6 +26,8 @@ static arguments and the ``allow_tf32`` switch.
   the eager form on the card in its place.
 * On the CPU there is no graph: the staged function calls ``fn``, a host
   array argument handed over as a tensor, as on the card.
+* A positional argument may be ``None`` (a block with no history): the key
+  holds that it is, and ``fn`` gets ``None`` in its place.
 
 What the function reads besides its array arguments (a pipeline's
 configuration and taps) is frozen into the graph at capture, as ``jax.jit``
@@ -40,7 +42,7 @@ import inspect
 import threading
 import warnings
 import weakref
-from typing import Callable, Iterable, Union
+from typing import Callable, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -87,12 +89,14 @@ def _torch_dtype(x: np.ndarray) -> torch.dtype:
 
 
 def _array_key(x) -> tuple:
+    if x is None:
+        return None
     if isinstance(x, torch.Tensor):
         return tuple(x.shape), x.dtype, x.is_contiguous()
     if isinstance(x, np.ndarray):
         return x.shape, _torch_dtype(x), bool(x.flags.c_contiguous)
-    raise TypeError(f"a staged function's positional arguments are tensors "
-                    f"or arrays, got {type(x).__name__}; pass other values "
+    raise TypeError(f"a staged function's positional arguments are tensors, "
+                    f"arrays or None, got {type(x).__name__}; pass other values "
                     f"by name as static arguments")
 
 
@@ -160,6 +164,11 @@ class Staged:
         self.hits = 0
         self.misses = 0
 
+    @property
+    def fn(self) -> Callable:
+        """The function staged: its eager form."""
+        return self._fn()
+
     def key(self, *args, **static) -> tuple:
         """The graph key of a call with these arguments."""
         self._check_static(static)
@@ -195,7 +204,9 @@ class Staged:
             _add_launch_counts(entry.launches)
             return map_tensors(torch.Tensor.clone, entry.outputs)
 
-    def _buffer(self, x) -> torch.Tensor:
+    def _buffer(self, x) -> Optional[torch.Tensor]:
+        if x is None:
+            return None
         if isinstance(x, np.ndarray):
             return torch.empty(x.shape, dtype=_torch_dtype(x),
                                device=self.device)
@@ -205,7 +216,9 @@ class Staged:
     @staticmethod
     def _copy_in(buffers: list, args) -> None:
         for buf, x in zip(buffers, args):
-            buf.copy_(_host_tensor(x) if isinstance(x, np.ndarray) else x)
+            if buf is not None:
+                buf.copy_(_host_tensor(x) if isinstance(x, np.ndarray)
+                          else x)
 
     def _capture(self, fn: Callable, key: tuple, args, static) -> _Graph:
         inputs = [self._buffer(x) for x in args]

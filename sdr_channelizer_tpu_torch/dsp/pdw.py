@@ -51,6 +51,7 @@ and frequencies are finalized on the host in float64
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -75,8 +76,10 @@ _STATS_BATCH = 1
 # plain version (``ops.cuda.transpose_kernel``)
 _RAD2DEG = transpose_kernel.RAD2DEG
 _prep_streams = transpose_kernel.prep_streams
-# from this many samples on the wideband kernel tail goes block by block
+# from this many samples on the wideband kernel tail goes block by block,
+# in blocks of this many samples
 _WIDEBAND_BLOCKED_FROM = 1 << 24
+_WIDEBAND_BLOCK_LEN = 1 << 23
 
 
 @dataclasses.dataclass
@@ -820,30 +823,67 @@ def _extract_channelized_pallas_stats(
     )
 
 
+def _wideband_block(
+    mag_e: torch.Tensor,
+    ph_e: torch.Tensor,
+    sat_e: torch.Tensor,
+    nf: torch.Tensor,
+    entry: torch.Tensor,
+    *,
+    cfg: PdwConfig,
+    own_len: int,
+    end: bool,
+    ops=kernels.KERNELS,
+):
+    """One block of :func:`_extract_wideband_blocked`: the (T,) streams of
+    ``own_len`` owned samples and the halo, the (1,) floor and latch entry
+    -> ``(batch, a, b)``, the one-channel batch and the block's latch
+    transfer.  ``end``: the capture ends in this view, so a +inf magnitude
+    is appended and open pulses die."""
+    own = mag_e[:own_len]
+    if end:
+        mag_e = torch.cat([mag_e, mag_e.new_full((1,), float("inf"))])
+        ph_e = torch.cat([ph_e, ph_e.new_zeros(1)])
+        sat_e = torch.cat([sat_e, sat_e.new_zeros(1)])
+    batch = _extract_channelized_pallas_stats(
+        mag_e[:, None], ph_e[:, None], sat_e[:, None], cfg, nf,
+        entry_active=entry, own_len=own_len, ops=ops)
+    a, b = block_transfer(own[None, :], nf[:, None], cfg.snr_threshold_db,
+                          cfg.trailing_threshold_db)
+    return batch, a, b
+
+
 def _extract_wideband_blocked(
     mag: torch.Tensor,
     phase_deg: torch.Tensor,
     sat: torch.Tensor,
     cfg: PdwConfig,
     noise_floor: torch.Tensor,
-    block_len: int = 1 << 23,
+    block_len: Optional[int] = None,
     ops=kernels.KERNELS,
+    block_step=None,
 ) -> PdwBatch:
     """Wideband extraction through the kernel tail, block by block over the
-    time axis: for captures of 2^24 samples and more, whose latch counts
-    would not be exact in float32.  The latch is carried by composing the
-    blocks' transfer functions, every block sees a right halo of
-    ``max_pulse_samples``: the block contract, in memory.
+    time axis (``_WIDEBAND_BLOCK_LEN`` samples a block unless ``block_len``
+    is given): for captures of 2^24 samples and more, whose latch counts
+    would not be exact in float32.  The latch is carried on the device by
+    composing the blocks' transfer functions, every block sees a right halo
+    of ``max_pulse_samples``: the block contract, in memory.
 
     Equal to the single-shot extractor for pulses no longer than the halo;
     a pulse open at the end of the capture is never emitted (a +inf
     magnitude is appended there, so it never closes).
 
+    ``block_step`` runs a block as :func:`_wideband_block` does, without
+    ``cfg`` and ``ops`` (a staged form of it); by default that function.
     The blocks' extractions and the transfer chain are all dispatched first;
     then every field comes to the host once, stacked over the blocks.
     """
     t_len = mag.shape[0]
     halo = cfg.max_pulse_samples
+    block_len = block_len or _WIDEBAND_BLOCK_LEN
+    step = functools.partial(_wideband_block, cfg=cfg, ops=ops) \
+        if block_step is None else block_step
     nf = noise_floor.reshape(1)
     entry = torch.zeros(1, dtype=torch.bool, device=mag.device)
     n_blocks = (t_len + block_len - 1) // block_len
@@ -854,16 +894,9 @@ def _extract_wideband_blocked(
         s0 = k * block_len
         s1 = min(s0 + block_len, t_len)
         h1 = min(s1 + halo, t_len)
-        mag_e, ph_e, sat_e = mag[s0:h1], phase_deg[s0:h1], sat[s0:h1]
-        if h1 == t_len:  # the capture ends in this view: open pulses die
-            mag_e = torch.cat([mag_e, mag_e.new_full((1,), float("inf"))])
-            ph_e = torch.cat([ph_e, ph_e.new_zeros(1)])
-            sat_e = torch.cat([sat_e, sat_e.new_zeros(1)])
-        batches.append(_extract_channelized_pallas_stats(
-            mag_e[:, None], ph_e[:, None], sat_e[:, None], cfg, nf,
-            entry_active=entry, own_len=s1 - s0, ops=ops))
-        a, b = block_transfer(mag[s0:s1][None, :], nf[:, None],
-                              cfg.snr_threshold_db, cfg.trailing_threshold_db)
+        batch, a, b = step(mag[s0:h1], phase_deg[s0:h1], sat[s0:h1], nf,
+                           entry, own_len=s1 - s0, end=h1 == t_len)
+        batches.append(batch)
         entry = torch.where(entry, b, a)
         starts.append(s0)
 

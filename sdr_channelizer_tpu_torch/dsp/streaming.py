@@ -28,6 +28,14 @@ default form (the FFT on the CPU; on the card the channelizer kernel's
 complex form, seeded with each block's history) and the plain PyTorch
 block extractor; they also run wideband (``channelizer=None``).
 
+Staged steps (the JAX package's ``jax.jit`` sites, ``_staging``): on the
+card the fused block step (the packed channelization, the kernel tail and
+the block's latch transfer), the floor pass's block channelization, the
+floor's count passes and the oracle block step run as CUDA graphs captured
+once a key.  The latch entry is chained on the device; a block's transfer
+comes to the host only where a checkpoint is written.  ``plain=True`` runs
+every step eagerly.
+
 Noise floors: the reference uses the median over the *whole* capture, which
 no single streaming pass can produce.  ``noise_floor="two_pass"`` (default)
 measures exact floors with streamed counting passes and then detects;
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 
 from sdr_channelizer_tpu_torch._device import resolve_device
+from sdr_channelizer_tpu_torch._staging import Staged
 from sdr_channelizer_tpu_torch.config import PdwConfig
 from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
 from sdr_channelizer_tpu_torch.dsp.channelizer import (
@@ -78,11 +87,12 @@ def _u32_to_f32_np(u: np.ndarray) -> np.ndarray:
 
 
 def _nf_count_le(mag: torch.Tensor, prefix: torch.Tensor,
-                 shift: int) -> torch.Tensor:
+                 shift: torch.Tensor) -> torch.Tensor:
     """Per-channel ``count(key <= cut)`` for the 15 cut points of one 4-bit
     radix level.  ``mag`` is a device-resident (T, M) block, ``prefix`` the
-    (M,) key prefixes found so far (int64 holding u32); returns (M, 15)
-    int64 counts."""
+    (M,) key prefixes found so far (int64 holding u32), ``shift`` the level's
+    bit shift as a 0-d int64 tensor (so that one staged graph a block shape
+    serves every level); returns (M, 15) int64 counts."""
     keys = medians.sortable_u32(mag)  # (T, M)
     j = torch.arange(1, 16, dtype=torch.int64, device=mag.device)
     cuts = (prefix[:, None] | (j[None, :] << shift)) - 1
@@ -263,6 +273,17 @@ class StreamingExtractor:
             # full-float32 products on the whole path
             torch.backends.cuda.matmul.allow_tf32 = False
         self._ops = kernels.PLAIN if self.plain else kernels.KERNELS
+        # the JAX package's jax.jit sites (streaming.py:67, :84, :261 and
+        # the fused block step); ``_eager`` runs their eager forms instead
+        self._eager = self.plain
+        self._staged_fused_block = Staged(
+            self._fused_block, self.device, ("own_len", "bit_width"))
+        self._staged_floor_block = Staged(self._floor_block, self.device,
+                                          ("bit_width",))
+        self._staged_nf_count_le = Staged(_nf_count_le, self.device)
+        self._staged_nf_finish = Staged(_nf_finish, self.device)
+        self._staged_detect_block = Staged(self._detect_block, self.device,
+                                           ("own_len",))
         self._halo = self.halo_frames or self.pdw_cfg.max_pulse_samples
         if self.block_frames < self._halo:
             # The look-ahead into the next block is the halo; shorter blocks
@@ -309,7 +330,13 @@ class StreamingExtractor:
             warnings.simplefilter("ignore", UserWarning)
             return torch.as_tensor(x).to(self.device)
 
-    def _detect_block(self, mag_e, ph_e, sat_e, nf, entry, own_len: int):
+    def _step(self, name: str):
+        """The staged step ``name`` (``"fused_block"``, ...), or its eager
+        form where the extractor runs eagerly."""
+        staged = getattr(self, f"_staged_{name}")
+        return staged.fn if self._eager else staged
+
+    def _detect_block(self, mag_e, ph_e, sat_e, nf, entry, *, own_len: int):
         """The oracle block step on (T, M) streams: the block's batch and
         its whole-block latch transfer over the owned samples."""
         cfg = self.pdw_cfg
@@ -317,6 +344,34 @@ class StreamingExtractor:
         batch = pdwmod.extract_pdws_block_core(
             mag_cm, ph_e.T.contiguous(), sat_e.T.contiguous(), nf, entry,
             own_len=own_len, **pdwmod._core_kwargs(cfg))
+        a, b = pdwmod.block_transfer(
+            mag_cm[:, :own_len], nf[:, None], cfg.snr_threshold_db,
+            cfg.trailing_threshold_db)
+        return batch, a, b
+
+    def _block_streams(self, hist, xq, bit_width: int):
+        """The channelizer kernel's cm form on a packed block: ``(mag,
+        mag_cm, dph_cm, sat_cm)``; ``hist`` the packed P-1 frames before
+        it, or None at the capture's start (zeros, as the kernel's own)."""
+        return self._ops.channelize_cm(
+            xq, self.channelizer.taps_rev, bit_width=bit_width,
+            sat_level=self.pdw_cfg.saturation_level, history=hist)
+
+    def _floor_block(self, hist, xq, *, bit_width: int):
+        """The floor pass's block: its (T, M) magnitude."""
+        return self._block_streams(hist, xq, bit_width)[0]
+
+    def _fused_block(self, hist, xq, nf, entry, *, own_len: int,
+                     bit_width: int):
+        """The fused block step: the block's batch through the kernel tail
+        and its whole-block latch transfer over the ``own_len`` owned
+        frames."""
+        cfg = self.pdw_cfg
+        mag, mag_cm, dph_cm, sat_cm = self._block_streams(hist, xq, bit_width)
+        batch = pdwmod._extract_channelized_pallas_stats(
+            mag, None, None, cfg, nf, entry_active=entry, own_len=own_len,
+            cm_streams=(mag_cm, dph_cm, sat_cm), ops=self._ops)
+        # mag_cm holds the bits of mag, with time already last
         a, b = pdwmod.block_transfer(
             mag_cm[:, :own_len], nf[:, None], cfg.snr_threshold_db,
             cfg.trailing_threshold_db)
@@ -434,18 +489,21 @@ class StreamingExtractor:
         def pref_dev():
             return torch.as_tensor(prefix.astype(np.int64), device=dev)
 
+        count_le = self._step("nf_count_le")
         for level in range(8):
             shift = 28 - 4 * level
             pd = pref_dev()
+            sd = torch.tensor(shift, dtype=torch.int64, device=dev)
             # sum every block's counts on the device, fetch once per level
-            tot = sum(_nf_count_le(b, pd, shift) for b in mags).cpu().numpy()
+            tot = sum(count_le(b, pd, sd) for b in mags).cpu().numpy()
             d2h += tot.nbytes
             nib = np.sum(tot <= k_lo, axis=1).astype(np.uint32)
             prefix |= nib << np.uint32(shift)
         lo = _u32_to_f32_np(prefix)
 
         pd = pref_dev()
-        outs = [_nf_finish(b, pd) for b in mags]
+        finish = self._step("nf_finish")
+        outs = [finish(b, pd) for b in mags]
         cnt_le = sum(c for c, _ in outs).cpu().numpy()
         mins = torch.stack([mn for _, mn in outs]).amin(dim=0).cpu().numpy()
         d2h += cnt_le.nbytes + mins.nbytes
@@ -507,10 +565,12 @@ class StreamingExtractor:
         offset = 0
         pending = None  # previous block's (mag, ph, sat) awaiting its halo
 
+        detect = self._step("detect_block")
+
         def flush(prev, halo_streams, own_len, entry):
             streams = [torch.cat([p, h], dim=0)
                        for p, h in zip(prev, halo_streams)]
-            return self._detect_block(*streams, nf, entry, own_len)
+            return detect(*streams, nf, entry, own_len=own_len)
 
         short_halo = False  # the last flush's halo was cut by a short block
         for y in self._channelized_blocks(make_sample_blocks()):
@@ -590,7 +650,9 @@ class StreamingExtractor:
                     process_block, fc):
         """The block loop both segment extractors share: resume a block
         from its checkpoint or run ``process_block(f0, t_k, h_k, entry)`` ->
-        ``(batch, a, b)`` and checkpoint it, chaining the latch entry."""
+        ``(batch, a, b)`` and checkpoint it, chaining the latch entry on the
+        device.  The batch comes to the host once a block; ``a`` and ``b``
+        only where a checkpoint is written."""
         m = self._num_bands()
         block = self.block_frames
         results, offsets = [], []
@@ -605,19 +667,17 @@ class StreamingExtractor:
             if path and os.path.exists(path):
                 z = np.load(path)
                 batch = pdwmod.PdwBatch(**{n: z[n] for n in _FIELD_NAMES})
-                a_blk, b_blk = z["a"], z["b"]
+                a, b = self._on_device(z["a"]), self._on_device(z["b"])
                 self.counters.add("blocks_resumed_from_checkpoint")
             else:
                 h_k = min(self._halo, n_frames - f0 - t_k)
-                batch, a_dev, b_dev = process_block(f0, t_k, h_k, entry)
+                batch, a, b = process_block(f0, t_k, h_k, entry)
                 batch = pdwmod.batch_to_host(batch)
-                a_blk, b_blk = a_dev.cpu().numpy(), b_dev.cpu().numpy()
                 if path:
                     np.savez(
-                        path, a=a_blk, b=b_blk,
+                        path, a=a.cpu().numpy(), b=b.cpu().numpy(),
                         **{n: getattr(batch, n) for n in _FIELD_NAMES})
-            entry = torch.where(entry, self._on_device(b_blk),
-                                self._on_device(a_blk))
+            entry = torch.where(entry, b, a)
             results.append(batch)
             offsets.append(f0)
         return self._finalize(results, offsets,
@@ -655,6 +715,7 @@ class StreamingExtractor:
         nf = self._segment_noise_floor(
             noise_floor, ck, lambda: self.measure_noise_floor(
                 lambda: segment.iter_samples(block * m)))
+        detect = self._step("detect_block")
 
         def process_block(f0, t_k, h_k, entry):
             hist_frames = min(p - 1, f0)
@@ -674,7 +735,7 @@ class StreamingExtractor:
             if h_k < 1:  # the capture ends at this block: +inf pad
                 streams = [torch.cat([s, e], dim=0) for s, e in
                            zip(streams, self._end_pad(streams))]
-            return self._detect_block(*streams, nf, entry, t_k)
+            return detect(*streams, nf, entry, own_len=t_k)
 
         return self._run_blocks(segment, n_frames, n_blocks, ck,
                                 process_block, fc)
@@ -711,11 +772,8 @@ class StreamingExtractor:
         if self.channelizer is None:
             raise ValueError("extract_segment_fused requires a channelizer "
                              "(wideband streaming uses extract_segment)")
-        chan = self.channelizer
-        ops = self._ops
         bit_width = segment.headers[0].bit_width
-        p = chan.taps_per_band
-        cfg = self.pdw_cfg
+        p = self.channelizer.taps_per_band
         block = self.block_frames
         ck = checkpoint_dir
         m, n_frames, n_blocks = self._block_plan(segment, ck)
@@ -728,9 +786,12 @@ class StreamingExtractor:
                 "torch.backends.cuda.matmul.allow_tf32 was switched on: the "
                 "streamed path needs full-float32 products")
 
+        # a staged step copies a host block straight into its buffer
+        put = self._on_device if self._eager else np.asarray
+
         def read_block(f0, t_k, h_k):
-            """(packed history or None, packed block) on the device, over
-            frames [f0 - hist, f0 + t_k + h_k)."""
+            """(packed history or None, packed block), over frames
+            [f0 - hist, f0 + t_k + h_k)."""
             hist_frames = min(p - 1, f0)
             raw = segment.read_samples_raw(
                 (f0 - hist_frames) * m, (hist_frames + t_k + h_k) * m)
@@ -743,20 +804,18 @@ class StreamingExtractor:
                     pad = np.zeros(((p - 1 - hist_frames) * m, raw.shape[1]),
                                    raw.dtype)
                     head = np.concatenate([pad, head])
-                hist = self._on_device(_packed_view(head))
-            return hist, self._on_device(_packed_view(raw[hist_frames * m:]))
+                hist = put(_packed_view(head))
+            return hist, put(_packed_view(raw[hist_frames * m:]))
 
-        def block_streams(f0, t_k, h_k):
-            hist, xq = read_block(f0, t_k, h_k)
-            return ops.channelize_cm(
-                xq, chan.taps_rev, bit_width=bit_width,
-                sat_level=cfg.saturation_level, history=hist)
+        floor_block = self._step("floor_block")
+        fused_block = self._step("fused_block")
 
         def dev_mag_blocks():
             for k in range(n_blocks):
                 f0 = k * block
                 t_k = min(block, n_frames - f0)
-                yield block_streams(f0, t_k, 0)[0][:t_k]
+                yield floor_block(*read_block(f0, t_k, 0),
+                                  bit_width=bit_width)
 
         def measure():
             nf_arr = None
@@ -771,15 +830,8 @@ class StreamingExtractor:
         nf = self._segment_noise_floor(noise_floor, ck, measure)
 
         def process_block(f0, t_k, h_k, entry):
-            mag, mag_cm, dph_cm, sat_cm = block_streams(f0, t_k, h_k)
-            batch = pdwmod._extract_channelized_pallas_stats(
-                mag, None, None, cfg, nf, entry_active=entry, own_len=t_k,
-                cm_streams=(mag_cm, dph_cm, sat_cm), ops=ops)
-            # mag_cm holds the bits of mag, with time already last
-            a, b = pdwmod.block_transfer(
-                mag_cm[:, :t_k], nf[:, None], cfg.snr_threshold_db,
-                cfg.trailing_threshold_db)
-            return batch, a, b
+            return fused_block(*read_block(f0, t_k, h_k), nf, entry,
+                               own_len=t_k, bit_width=bit_width)
 
         return self._run_blocks(segment, n_frames, n_blocks, ck,
                                 process_block, fc)

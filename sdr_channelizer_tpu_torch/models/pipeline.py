@@ -333,7 +333,8 @@ class WidebandPdwPipeline:
     time-major latch and the statistics kernel at one channel; block by
     block from 2^24 samples on, with the flip kernel a block), on the CPU
     the oracle tail.  ``step`` and ``extract`` replay a captured CUDA graph
-    of :meth:`forward` below 2^24 samples (``_staging``).
+    of :meth:`forward` below 2^24 samples, and from 2^24 on one a block of
+    the blocked tail (``_staging``).
     """
 
     pdw_cfg: PdwConfig = dataclasses.field(default_factory=PdwConfig.wideband)
@@ -341,8 +342,11 @@ class WidebandPdwPipeline:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        # the JAX package's jax.jit wrapper (models/pipeline.py:308)
+        # the JAX package's jax.jit wrapper (models/pipeline.py:308), and
+        # the blocked tail's block step
         self._staged_forward = Staged(self.forward, self.device)
+        self._staged_block = Staged(self._block, self.device,
+                                    ("own_len", "end"))
 
     @classmethod
     def from_reference(
@@ -363,17 +367,33 @@ class WidebandPdwPipeline:
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.complex64)
         return pdwmod.extract_pdws_with_floor(x, self.pdw_cfg, ops=ops)
 
+    def _block(self, mag_e, ph_e, sat_e, nf, entry, *, own_len: int,
+               end: bool):
+        """One block of the blocked tail through the kernels
+        (``dsp.pdw._wideband_block``)."""
+        return pdwmod._wideband_block(mag_e, ph_e, sat_e, nf, entry,
+                                      cfg=self.pdw_cfg, own_len=own_len,
+                                      end=end)
+
     def step(self, x) -> Tuple[torch.Tensor, PdwBatch]:
-        """:meth:`forward`, staged below 2^24 samples.  From 2^24 samples
-        on the step stays eager: the blocked tail brings each block's
-        pulses to the host and compacts them there
-        (``dsp.pdw._extract_wideband_blocked``), which a graph cannot
-        hold."""
+        """:meth:`forward`, staged.  Below 2^24 samples the whole step is
+        one graph.  From 2^24 samples on the card the tail goes block by
+        block and brings the blocks' pulses to the host once, to compact
+        them there (``dsp.pdw._extract_wideband_blocked``), which one graph
+        cannot hold: the streams and the floor run eagerly, each block's
+        step is staged, and the latch entry is chained on the device."""
         if not hasattr(x, "shape"):
             x = np.asarray(x)
-        if x.shape[-1] >= pdwmod._WIDEBAND_BLOCKED_FROM:
-            return self.forward(x)
-        return self._staged_forward(x)
+        if x.shape[-1] < pdwmod._WIDEBAND_BLOCKED_FROM:
+            return self._staged_forward(x)
+        x = torch.as_tensor(x).to(device=self.device, dtype=torch.complex64)
+        if pdwmod._wideband_tail("auto", x, x.shape[-1]) != "blocked":
+            return self.forward(x)   # the oracle tail, on the CPU
+        cfg = self.pdw_cfg
+        mag, phase_deg, sat = pdwmod._prep_streams(x, cfg.saturation_level)
+        nf = pdwmod.noise_floor_1d(mag, ops=kernels.KERNELS)
+        return nf, pdwmod._extract_wideband_blocked(
+            mag, phase_deg, sat, cfg, nf, block_step=self._staged_block)
 
     def extract(
         self,

@@ -163,8 +163,10 @@ def test_tracker_stages_its_dwell_on_what_it_reads():
 
 def test_wideband_step_is_eager_from_the_blocked_length(monkeypatch):
     """Below ``_WIDEBAND_BLOCKED_FROM`` samples the step is the staged
-    forward; from it on the eager one (the blocked tail compacts on the
-    host)."""
+    forward; from it on the step is not one graph (the blocked tail
+    compacts on the host): on the CPU the eager forward, on the card the
+    blocked tail with each block staged
+    (``test_torch_streaming_staged.py``)."""
     pipe = WidebandPdwPipeline(PdwConfig.wideband(**WIDE_CFG), device="cpu")
     calls = []
     pipe._staged_forward = lambda x: calls.append(len(x)) or "staged"
