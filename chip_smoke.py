@@ -42,15 +42,20 @@ normalised ``.npz``, each through the main path; ``channelize`` on the card,
 B9 once a file; ``waterfall_window_pngs``, B9 once a window; the
 spectrogram of the wideband capture packed at bit width 12, against a
 float64 STFT, timed beside its bound and the cuFFT form), before that the
-sharded path (``sharded``: ``ShardedPipeline.extract_fused`` at meshes (4,
-1) and (2, 2) of four shards on the one card against the single-device
-step, K1 and B5 with band slices bit for bit the full kernel's rows, route
-``"cm"``, wideband at (4, 1), ``pdw --shards 4`` in fresh processes, a
-``--strict-halo`` refusal and two gloo ranks on the card; the sharded
-PDWs are held against every pulse of an unsharded step cut to a shard's
-slots), and where the machine has several cards the same path a card a
-shard, in one process and in one NCCL process a card (``cards``; one line
-that says it was skipped on one card; ``cards_main`` runs it alone); and
+sharded path (``sharded``: the steps staged, a CUDA graph a stage, key
+and device with the exchanges between the replays, each bit for bit its
+eager form and each stage's replayed outputs against its kernels' plain
+versions; ``ShardedPipeline.extract_fused`` at meshes (4, 1) and (2, 2) of
+four shards on the one card against the single-device step, each key
+captured once, K1 and B5 with band slices bit for bit the full kernel's
+rows, route ``"cm"``, wideband at (4, 1), the oracle steps and
+``sharded_channelize`` on a quarter of the sparse capture, ``pdw --shards
+4`` in fresh processes, a ``--strict-halo`` refusal and two gloo ranks on
+the card; the sharded PDWs are held against every pulse of an unsharded
+step cut to a shard's slots), and where the machine has several cards the
+same path a card a shard, in one process and in one NCCL process a card,
+staged and eager (``cards``; one line that says it was skipped on one
+card; ``cards_main`` runs it alone); and
 runs the CLI,
 the capture commands and the views included (``convert``, ``pdw`` on
 every container, ``spectrogram``, ``plot``, ``pdw --png``, ``predict
@@ -101,6 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 
@@ -3257,34 +3263,201 @@ def run_module_cli(argv, timeout: float = 600):
                           timeout=timeout)
 
 
-def phase_sharded(pipe, caps, rows):
-    """This slice's path, ``parallel``: ``ShardedPipeline.extract_fused`` on
-    the dense and sparse captures at meshes (4, 1) and (2, 2) of four shards
-    on one card, held against the single-device step (launches counted: K1
-    and K3 once a shard, K2 once a mesh column); K1's and B5's band slices
-    (``sharded_band_checks``); route ``"cm"`` at (2, 2) on the sparse
-    capture (B5 with its slice); wideband 16,000,000 samples at (4, 1)
-    against ``WidebandPdwPipeline.extract``; ``pdw --shards 4`` through the
-    CLI on the card, channelized and wideband, and a ``--strict-halo``
-    refusal; two ranks on one card over gloo (the two-process test's
-    worker) against the one-process run.  Returns the launches of the
-    sharded cm2 steps."""
+CM_KERNELS = {"B5": "channelize_kernel", "B8": "flip_kernel",
+              "B7": "latch_scan_kernel", "K4": "pulse_stats_"}
+
+
+def stage_counts(spipe) -> dict:
+    """``{stage: (hits, misses, graphs kept)}`` of a sharded pipeline's
+    staged stages, summed over devices."""
+    out = {}
+    for (name, _), st in spipe._staged.items():
+        h, m, g = out.get(name, (0, 0, 0))
+        out[name] = (h + st.hits, m + st.misses, g + len(st))
+    return out
+
+
+def captures_between(before: dict, after: dict) -> dict:
+    """The captures (misses) each stage made between two readings of
+    ``stage_counts``."""
+    return {n: after[n][1] - before.get(n, (0, 0, 0))[1] for n in after}
+
+
+def recorded_stages(spipe, fn) -> dict:
+    """One run of ``fn`` with every stage that ``spipe`` hands out
+    recorded: the last call of each, ``{stage: (args, static, outputs)}``."""
+    calls = {}
+    stage = spipe._stage
+
+    def recording(name, device):
+        st = stage(name, device)
+
+        def call(*args, **static):
+            out = st(*args, **static)
+            calls[name] = (args, static, out)
+            return out
+        return call
+
+    spipe._stage = recording
+    try:
+        fn()
+    finally:
+        del spipe._stage
+    return calls
+
+
+def stages_against_plain(spipe, calls: dict, where: str) -> dict:
+    """Each recorded stage's replayed outputs against its kernels' plain
+    versions on the same inputs: K1 / B5 at the channelizer's tolerances
+    (``compare_streams`` / ``compare_flat``, with the history and the band
+    slice), K2's floor bit for bit, the kernel tails (K3 and K4; B8, B7 and
+    K4) bit for bit.  The oracle's stages launch no kernel."""
+    import torch
+
+    from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
+    from sdr_channelizer_tpu_torch.ops import cuda as k
+
+    cfg = spipe.pdw_cfg
+    out = {}
+    for name, (args, static, got) in calls.items():
+        what = f"{where}, stage {name} replayed"
+        if name in ("_chan_cm2", "_chan_cm"):
+            f0, f1, h0 = args[:3]
+            check(f1 is None, f"{what}: not a packed payload")
+            m_loc = got[0].shape[0 if name == "_chan_cm2" else 1]
+            band = None if spipe.n_chan == 1 else (static["col"] * m_loc,
+                                                   m_loc)
+            kw = dict(history=None if h0 is None else h0.reshape(-1),
+                      band=band)
+            if name == "_chan_cm2":
+                xq = torch.cat([f0, args[4]]).reshape(-1)
+                out[name] = compare_streams(
+                    xq, spipe.channelizer.taps_rev, static["bit_width"],
+                    cfg.saturation_level, got, what, **kw)
+            else:
+                out[name] = compare_flat(
+                    f0.reshape(-1), spipe.channelizer.taps_rev,
+                    static["bit_width"], cfg.saturation_level, got, what,
+                    **kw)
+        elif name in ("_floor_cm2", "_floor_cm", "_floor_1d"):
+            if name == "_floor_cm2":
+                buf = torch.cat(args, dim=1)
+            elif name == "_floor_cm":
+                buf = torch.cat([m.T.contiguous() for m in args], dim=1)
+            else:
+                buf = torch.cat(args).reshape(1, -1)
+            want = k.PLAIN.noise_floor(buf, buf.shape[1]).reshape(
+                got[0].shape)
+            check(same(got[0], want), f"{what}: the floor is not K2's plain "
+                                      f"version's")
+            out[name] = {"floor_bit_for_bit": True,
+                         "entries_active": int(got[1].sum())}
+        elif name == "_tail_cm2":
+            mag_cm, dph_cm, satcs_cm, nf, entry, row = args
+            own = static["own_len"]
+            cols = torch.arange(mag_cm.shape[1], device=mag_cm.device)
+            latch = torch.where((row == spipe.n_time - 1) & (cols >= own),
+                                float("inf"), mag_cm)
+            outputs_identical(got, pdwmod._extract_channelized_cm2(
+                mag_cm, dph_cm, satcs_cm, cfg, nf, mag_cm.shape[1],
+                mag_cm.shape[0], ops=k.PLAIN, entry_active=entry,
+                own_len=own, mag_latch_cm=latch), f"{what}: vs plain K3, K4")
+            out[name] = {"pulses": int(got.count.sum()),
+                         "bit_for_bit": True}
+        elif name == "_tail_tm" and static["kernel"]:
+            mag, ph, sat, hm, hp, hs, nf, entry, row = args
+            hm = torch.where(row == spipe.n_time - 1, float("inf"), hm)
+            outputs_identical(got, pdwmod._extract_channelized_pallas_stats(
+                torch.cat([mag, hm]), torch.cat([ph, hp]),
+                torch.cat([sat, hs]).to(torch.bool), cfg, nf,
+                entry_active=entry, own_len=static["own_len"], ops=k.PLAIN),
+                f"{what}: vs plain B8, B7, K4")
+            out[name] = {"pulses": int(got.count.sum()),
+                         "bit_for_bit": True}
+    return out
+
+
+def staged_eager_ms(spipe, fn, reps: int = 5) -> dict:
+    """``fn()`` staged and with ``spipe._eager`` in turns (eager, staged,
+    staged, eager), each by CUDA events (``time_ms``, median of
+    ``reps``)."""
+    out = {"eager": [], "staged": []}
+    for which in ("eager", "staged", "staged", "eager"):
+        spipe._eager = which == "eager"
+        try:
+            out[which].append(time_ms(fn, reps=reps, warmup=1))
+        finally:
+            spipe._eager = False
+    return out
+
+
+def busy_reading(fn, step_ms: float, names: dict) -> dict:
+    """Only with ``--profile``: device busy by kernel name over five calls
+    of ``fn``, the idle share against ``step_ms``, and which of ``names``
+    (label -> a kernel name's part) the trace shows."""
+    prof = device_times(fn, steps=5)
+    busy = sum(r["ms_per_step"] for r in prof)
+    seen = {k: any(v in r["kernel"] for r in prof) for k, v in names.items()}
+    check(all(seen.values()), f"a replayed step's trace: {seen} in "
+                              f"{[r['kernel'] for r in prof[:12]]}")
+    return {"device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / step_ms),
+            "trace_kernels": seen, "top_kernels": prof[:8]}
+
+
+def stage_bytes(nt: int, nc: int, t_loc: int, halo: int, slots: int,
+                bands: int = M_MAIN) -> dict:
+    """What a staged cm2 step (packed payload) copies into its stages'
+    buffers and clones out of them, in bytes: the shards' frames, history
+    and head, the floor's owned magnitudes, the tails' three streams; the
+    streams, floors, entries and batches cloned."""
+    m_loc, p = bands // nc, 12
+    streams = 3 * 4 * m_loc * (t_loc + halo)
+    batch = m_loc * slots * (4 * 6 + 2) + 4 * m_loc
+    copy_in = nt * nc * (4 * bands * (t_loc + p - 1 + halo)
+                         + streams + 4 * m_loc + m_loc + 8) \
+        + nc * nt * 4 * m_loc * t_loc
+    clones = nt * nc * (streams + batch) + nc * (4 * m_loc + nt * m_loc)
+    return {"copy_in_bytes": copy_in, "clone_bytes": clones,
+            "at_hbm_rate_ms": 2 * (copy_in + clones) / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_sharded(pipe, caps, rows=()):
+    """This slice's path, ``parallel``, staged (a CUDA graph a stage, key
+    and device; the exchanges eager between the replays):
+    ``ShardedPipeline.extract_fused`` on the dense and sparse captures at
+    meshes (4, 1) and (2, 2) of four shards on one card, bit for bit its
+    eager form (``_eager``) and held against every pulse of the unsharded
+    step cut to a shard's slots; launches counted (K1 and K3 once a shard,
+    K2 once a mesh column, and once more a capture, each key captured on
+    the first capture, none on the second); each stage's replayed outputs
+    against its kernels' plain versions; the step by CUDA events, staged
+    and eager in turns, beside the single-device staged step, peak memory
+    and with ``--profile`` device busy, the idle share and the kernels in
+    the trace.  K1's and B5's band slices (``sharded_band_checks``); route
+    ``"cm"`` at (2, 2) on the sparse capture; wideband 16,000,000 samples
+    at (4, 1) against ``WidebandPdwPipeline.extract``; the oracle step,
+    ``step_planes`` and ``sharded_channelize`` on a quarter of the sparse
+    capture; ``pdw --shards 4`` through the CLI on the card, channelized
+    and wideband, and a ``--strict-halo`` refusal; two ranks on one card
+    over gloo (the two-process test's worker) against the one-process run.
+    Returns the launches of the sharded cm2 steps."""
     import torch
 
     from sdr_channelizer_tpu_torch.config import PdwConfig
+    from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
     from sdr_channelizer_tpu_torch.dsp.pdw import finalize_pdws
     from sdr_channelizer_tpu_torch.io import iqpacket
     from sdr_channelizer_tpu_torch.models import WidebandPdwPipeline
     from sdr_channelizer_tpu_torch.parallel import ShardedPipeline, make_mesh
     from sdr_channelizer_tpu_torch.parallel.pipeline import (
-        merge_block_batches, sharded_extract_pdws)
+        _KEPT, _wideband_pipeline, merge_block_batches, sharded_channelize,
+        sharded_extract_pdws)
 
     dev = torch.device(DEVICE, 0)
     devices = [dev] * SHARD_DEVICES
     n, fs = M_MAIN * FRAMES_MAIN, FS_MAIN
     profile = "--profile" in sys.argv[1:]
-    single = {name: pipe.extract_fused(s, BIT_WIDTH, fs=fs)
-              for name, s in caps.items()}
     whole = unsharded_reference(pipe, caps)
     out = {"devices": [str(d) for d in devices]}
     total = {name: 0 for name in SHARDED_COUNTS}
@@ -3294,19 +3467,28 @@ def phase_sharded(pipe, caps, rows):
         spipe = ShardedPipeline(make_mesh(nt, nc, devices=devices),
                                 pipe.channelizer, pipe.pdw_cfg)
         res = {}
-        for name, samples in caps.items():
+        for name, samples in caps.items():   # the first one captures
             reset_counts(SHARDED_COUNTS)
+            before = stage_counts(spipe)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             got = spipe.extract_fused(samples, BIT_WIDTH, fs=fs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = read_counts(SHARDED_COUNTS)
             peak = torch.cuda.max_memory_allocated()
-            check(counts["channelize_streams_packed_cm2"] == nt * nc
+            counts = read_counts(SHARDED_COUNTS)
+            made = captures_between(before, stage_counts(spipe))
+            keys = {"_chan_cm2": 2 * nc, "_floor_cm2": 1, "_tail_cm2": 1}
+            check(made == (keys if name == next(iter(caps)) else
+                           dict.fromkeys(keys, 0)),
+                  f"sharded {key} {name}: captures {made}, want each key "
+                  f"once on the first step and none after")
+            check(counts["channelize_streams_packed_cm2"]
+                  == nt * nc + made["_chan_cm2"]
                   and counts["latch_cumsums_cm"] == nt * nc
-                  and counts["noise_floor_cm"] == nc
+                  + made["_tail_cm2"]
+                  and counts["noise_floor_cm"] == nc + made["_floor_cm2"]
                   and counts["pulse_stats"] > 0,
                   f"sharded {key} {name}: launch counts {counts}")
             for c in total:
@@ -3314,27 +3496,37 @@ def phase_sharded(pipe, caps, rows):
             pdws_sharded_agree(got, shard_slots(
                 whole[name], pipe.pdw_cfg.max_pulses, nt),
                 f"sharded {key} {name}")
-            capped = sum(int(c) == pipe.pdw_cfg.max_pulses
-                         for c in np.bincount(single[name]["channel"]))
+            spipe._eager = True
+            try:
+                eager = spipe.extract_fused(samples, BIT_WIDTH, fs=fs)
+            finally:
+                spipe._eager = False
+            pdws_identical(got, eager, f"sharded {key} {name}: staged vs "
+                                       f"eager")
             xq = torch.as_tensor(pack(samples), device=dev)
-            step = time_ms(lambda: spipe.step_packed(xq, BIT_WIDTH), reps=5)
-            one = time_ms(lambda: pipe.forward_packed(xq, BIT_WIDTH), reps=5)
-            res[name] = {"pulses": len(got["toa"]),
-                         "compared_pulses": len(got["toa"]),
-                         "unsharded_pulses": len(whole[name]["toa"]),
-                         "single_device_pulses": len(single[name]["toa"]),
-                         "channels_at_the_slot_cap": capped,
-                         "extract_fused_s": wall,
-                         "launches": counts, "peak_memory_bytes": peak,
-                         "step_ms": step, "single_device_step_ms": one,
-                         "msamples_per_s": n / step / 1e3}
+            turns = staged_eager_ms(spipe, lambda: spipe.step_packed(
+                xq, BIT_WIDTH))
+            staged_ms = statistics.median(turns["staged"])
+            res[name] = {
+                "pulses": len(got["toa"]),
+                "unsharded_pulses": len(whole[name]["toa"]),
+                "staged_equals_eager": True, "extract_fused_s": wall,
+                "launches": counts, "captures": made,
+                "stages": stage_counts(spipe), "peak_memory_bytes": peak,
+                "step_ms": turns,
+                "single_device_staged_step_ms": time_ms(
+                    lambda: pipe._step_packed(xq, BIT_WIDTH), reps=5),
+                "msamples_per_s": n / staged_ms / 1e3,
+                **stage_bytes(nt, nc, FRAMES_MAIN // nt, HALO_FRAMES,
+                              pipe.pdw_cfg.max_pulses)}
+            if name == "dense":
+                res["stages_against_plain"] = stages_against_plain(
+                    spipe, recorded_stages(spipe, lambda: spipe.step_packed(
+                        xq, BIT_WIDTH)), f"sharded {key} {name}")
             if profile:
-                prof = device_times(lambda: spipe.step_packed(xq, BIT_WIDTH),
-                                    steps=5)
-                busy = sum(r["ms_per_step"] for r in prof)
-                res[name].update(device_busy_ms=busy,
-                                 idle_share=max(0.0, 1.0 - busy / step),
-                                 top_kernels=prof[:8])
+                res[name].update(busy_reading(
+                    lambda: spipe.step_packed(xq, BIT_WIDTH), staged_ms,
+                    STAGED_KERNELS))
             del xq
         # the floor's gather: each column's owned columns into one buffer
         t_loc, m_loc = FRAMES_MAIN // nt, M_MAIN // nc
@@ -3344,7 +3536,7 @@ def phase_sharded(pipe, caps, rows):
             torch.cat([p[:, :t_loc] for p in col], dim=1) for col in parts])
         res["gather_bound_ms"] = 2 * 4 * M_MAIN * FRAMES_MAIN \
             / HBM_BYTES_PER_S * 1e3
-        del parts
+        del parts, spipe
         out[key] = res
 
     xq = torch.as_tensor(pack(caps["dense"]), device=dev)
@@ -3358,55 +3550,173 @@ def phase_sharded(pipe, caps, rows):
                             pipe.channelizer, pipe.pdw_cfg)
     xq = torch.as_tensor(pack(caps["sparse"]), device=dev)
     reset_counts(SHARDED_CM_COUNTS)
-    _, batch = spipe.step_packed(xq, BIT_WIDTH, route="cm")
+    torch.cuda.reset_peak_memory_stats()
+    batches = [spipe.step_packed(xq, BIT_WIDTH, route="cm")]
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     counts = read_counts(SHARDED_CM_COUNTS)
-    check(counts["channelize_streams_packed"] == 4
-          and counts["cm_streams"] == 4 and counts["latch_cumsums"] == 4
-          and counts["noise_floor_cm"] == 2
+    made = captures_between({}, stage_counts(spipe))
+    check(made == {"_chan_cm": 4, "_floor_cm": 1, "_tail_tm": 1},
+          f"sharded route cm: captures {made}")
+    check(counts["channelize_streams_packed"] == 4 + made["_chan_cm"]
+          and counts["cm_streams"] == 4 + made["_tail_tm"]
+          and counts["latch_cumsums"] == 4 + made["_tail_tm"]
+          and counts["noise_floor_cm"] == 2 + made["_floor_cm"]
           and counts["pulse_stats_dense"] > 0,
           f"sharded route cm: launch counts {counts}")
-    got = spipe._finalize_merged(batch, FRAMES_MAIN // 2, fs, 0.0, 0.0)
+    before = stage_counts(spipe)
+    batches.append(spipe.step_packed(xq, BIT_WIDTH, route="cm"))
+    check(captures_between(before, stage_counts(spipe))
+          == dict.fromkeys(made, 0),
+          "sharded route cm: the second step captured")
+    spipe._eager = True
+    try:
+        outputs_identical(batches[1], spipe.step_packed(xq, BIT_WIDTH,
+                                                        route="cm"),
+                          "sharded route cm: staged vs eager")
+    finally:
+        spipe._eager = False
+    outputs_identical(batches[0], batches[1], "sharded route cm: two steps")
+    got = spipe._finalize_merged(batches[0][1], FRAMES_MAIN // 2, fs, 0.0,
+                                 0.0)
     _, _, ref = pipe.forward_packed(xq, BIT_WIDTH, route="flat")
     pdws_sharded_agree(got, pipe._finalize(ref, fs, 0.0, 0.0),
                        "sharded route cm (2, 2) sparse")
+
+    def step_cm():
+        return spipe.step_packed(xq, BIT_WIDTH, route="cm")
+
+    turns = staged_eager_ms(spipe, step_cm)
     out["route_cm_2x2_sparse"] = {
-        "pulses": len(got["toa"]), "launches": counts,
-        "step_ms": time_ms(lambda: spipe.step_packed(xq, BIT_WIDTH,
-                                                     route="cm"), reps=5),
+        "pulses": len(got["toa"]), "launches": counts, "captures": made,
+        "staged_equals_eager": True, "peak_memory_bytes": peak,
+        "step_ms": turns,
         "single_device_flat_step_ms": time_ms(
-            lambda: pipe.forward_packed(xq, BIT_WIDTH, route="flat"),
-            reps=5)}
-    del xq, batch
+            lambda: pipe._step_packed(xq, BIT_WIDTH, "flat"), reps=5),
+        "stages_against_plain": stages_against_plain(
+            spipe, recorded_stages(spipe, step_cm), "sharded route cm")}
+    if profile:
+        out["route_cm_2x2_sparse"].update(busy_reading(
+            step_cm, statistics.median(turns["staged"]), CM_KERNELS))
+    del xq, batches, spipe
 
     # wideband, 16,000,000 samples at (4, 1)
     cfg = PdwConfig.wideband(max_pulses=512, max_pulse_samples=4096)
     wpipe = WidebandPdwPipeline.from_reference(dataclasses.asdict(cfg),
                                                DEVICE)
-    spec, iq = wideband_capture(WIDE_SAMPLES, 1e-3, 1234, seed=3)
-    ref = wpipe.extract(iq, fs=WIDE_FS, sample_start_time=100.0)
+    _, wide_iq = wideband_capture(WIDE_SAMPLES, 1e-3, 1234, seed=3)
+    ref = wpipe.extract(wide_iq, fs=WIDE_FS, sample_start_time=100.0)
     mesh = make_mesh(4, 1, devices=devices)
-    x = torch.as_tensor(iq, device=dev)
+    x = torch.as_tensor(wide_iq, device=dev)
     reset_counts(SHARDED_WIDE_COUNTS)
+    torch.cuda.reset_peak_memory_stats()
     batch, block = sharded_extract_pdws(x, cfg, mesh)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     counts = read_counts(SHARDED_WIDE_COUNTS)
-    check(counts["noise_floor_cm"] == 1 and counts["cm_streams"] == 4
-          and counts["latch_cumsums"] == 4
+    spipe = _wideband_pipeline(mesh, cfg)
+    made = captures_between({}, stage_counts(spipe))
+    check(made == {"_prep_wideband": 1, "_floor_1d": 1, "_tail_tm": 1},
+          f"sharded wideband: captures {made}")
+    check(counts["noise_floor_cm"] == 1 + made["_floor_1d"]
+          and counts["cm_streams"] == 4 + made["_tail_tm"]
+          and counts["latch_cumsums"] == 4 + made["_tail_tm"]
           and counts["pulse_stats_dense"] > 0,
           f"sharded wideband: launch counts {counts}")
+    before = stage_counts(spipe)
+    again, _ = sharded_extract_pdws(x, cfg, mesh)
+    check(captures_between(before, stage_counts(spipe))
+          == dict.fromkeys(made, 0),
+          "sharded wideband: the second step captured")
+    outputs_identical(again, batch, "sharded wideband: two steps")
+    spipe._eager = True
+    try:
+        outputs_identical(sharded_extract_pdws(x, cfg, mesh)[0], batch,
+                          "sharded wideband: staged vs eager")
+    finally:
+        spipe._eager = False
     got = finalize_pdws(merge_block_batches(batch, block), fs=WIDE_FS,
                         sample_start_time=100.0)
     check(len(got["toa"]) > 200, "sharded wideband: too few pulses")
     pdws_sharded_agree(got, ref, "sharded wideband (4, 1)")
+
+    def step_wide():
+        return sharded_extract_pdws(x, cfg, mesh)
+
+    turns = staged_eager_ms(spipe, step_wide, reps=3)
     out["wideband_4x1"] = {
         "samples": WIDE_SAMPLES, "pulses": len(got["toa"]),
-        "launches": counts,
-        "step_ms": time_ms(lambda: sharded_extract_pdws(x, cfg, mesh),
-                           reps=3, warmup=1),
-        "single_device_step_ms": time_ms(lambda: wpipe.forward(x), reps=3,
-                                         warmup=1)}
-    del x, batch
+        "launches": counts, "captures": made, "staged_equals_eager": True,
+        "peak_memory_bytes": peak, "step_ms": turns,
+        "single_device_staged_step_ms": time_ms(lambda: wpipe.step(x),
+                                                reps=3, warmup=1),
+        "stages_against_plain": stages_against_plain(
+            spipe, recorded_stages(spipe, step_wide), "sharded wideband")}
+    if profile:
+        out["wideband_4x1"].update(busy_reading(
+            step_wide, statistics.median(turns["staged"]),
+            {"B7": "latch_scan_kernel", "K4": "pulse_stats_"}))
+    # the kept pipeline and its graphs go with the mesh, no collector run
+    kept = weakref.ref(spipe)
+    del x, batch, again, spipe, mesh, step_wide
+    check(kept() is None, "sharded wideband: the mesh's pipeline outlived it")
+
+    # the oracle routes and sharded_channelize on a quarter of the sparse
+    # capture (their plain PyTorch steps at full depth would take most of
+    # the phase): staged bit for bit eager, nothing captured the second time
+    frames = FRAMES_MAIN // 4
+    iq = iqpacket.to_complex(caps["sparse"][:M_MAIN * frames], BIT_WIDTH)
+    xr, xi = (np.ascontiguousarray(v, np.float32) for v in (iq.real, iq.imag))
+    oracle = {"frames": frames, "depth": "a quarter of the sparse capture"}
+    for nt, nc in SHARD_MESHES:
+        spipe = ShardedPipeline(make_mesh(nt, nc, devices=devices),
+                                pipe.channelizer, pipe.pdw_cfg)
+        res = {}
+        for label, fn in (("step", lambda: spipe.step(iq)),
+                          ("step_planes", lambda: spipe.step_planes(xr, xi))):
+            torch.cuda.reset_peak_memory_stats()
+            first = fn()
+            peak = torch.cuda.max_memory_allocated()
+            made = stage_counts(spipe)
+            second = fn()
+            check(captures_between(made, stage_counts(spipe))
+                  == dict.fromkeys(made, 0),
+                  f"sharded {label} {nt}x{nc}: the second step captured")
+            spipe._eager = True
+            try:
+                outputs_identical(second, fn(), f"sharded {label} {nt}x{nc}: "
+                                                f"staged vs eager")
+            finally:
+                spipe._eager = False
+            outputs_identical(first, second, f"sharded {label}: two steps")
+            check(int(first[-1].count.sum()) > 0, f"sharded {label}: no "
+                                                  f"pulses")
+            res[label] = {"pulses": int(first[-1].count.sum()),
+                          "staged_equals_eager": True,
+                          "peak_memory_bytes": peak,
+                          "step_ms": staged_eager_ms(spipe, fn, reps=3)}
+        res["stages"] = stage_counts(spipe)
+        oracle[f"{nt}x{nc}"] = res
+        del spipe
+    mesh = make_mesh(2, 2, devices=devices)
+    chan = Channelizer.from_taps(pipe.channelizer.taps_rev)
+    y = sharded_channelize(iq, chan, mesh)
+    spipe = _KEPT[id(mesh)][("channelize", id(chan))]
+    made = stage_counts(spipe)
+    check(same(sharded_channelize(iq, chan, mesh), y)
+          and captures_between(made, stage_counts(spipe))
+          == dict.fromkeys(made, 0),
+          "sharded_channelize: the second call captured or differs")
+    spipe._eager = True
+    try:
+        check(same(sharded_channelize(iq, chan, mesh), y),
+              "sharded_channelize: staged vs eager")
+    finally:
+        spipe._eager = False
+    oracle["sharded_channelize_2x2"] = {"shape": list(y.shape),
+                                        "stages": made}
+    out["oracle"] = oracle
+    del y, spipe, mesh
 
     # the CLI on the card, in fresh processes
     with tempfile.TemporaryDirectory() as tmp:
@@ -3419,7 +3729,7 @@ def phase_sharded(pipe, caps, rows):
             return path
 
         sparse = write("sparse.iq", caps["sparse"], fs)
-        wide_q = quantize(iq)
+        wide_q = quantize(wide_iq)
         wide = write("wide.iq", wide_q, WIDE_FS)
         cli = {}
         a = os.path.join(tmp, "a.npz")
@@ -3452,7 +3762,8 @@ def phase_sharded(pipe, caps, rows):
         out["cli"] = cli
 
     # two ranks on one card over gloo, the exchanges staged through the
-    # host: the small capture of tests/test_torch_multihost.py
+    # host and every step staged: the small capture of
+    # tests/test_torch_multihost.py
     from sdr_channelizer_tpu_torch.parallel import multihost
     from sdr_channelizer_tpu_torch.signal.synth import (PulseTrainSpec,
                                                          pulse_train)
@@ -3480,8 +3791,9 @@ def phase_sharded(pipe, caps, rows):
                             "pulses": int(one["count"].sum()),
                             "cm2_pulses": int(one["cm2_count"].sum())}
 
-    # the kernels line: the sharded steps' launches, and the band slice's
-    # readings on K1's and B5's rows
+    # the kernels line: the sharded steps' launches (replays and the
+    # captures' warm-ups), and the band slice's readings on K1's and B5's
+    # rows
     sharded = dict(total, channelize_streams_packed=out[
         "route_cm_2x2_sparse"]["launches"]["channelize_streams_packed"])
     for r in rows:
@@ -3520,15 +3832,17 @@ def host_ms(fn, devices, reps: int = 5) -> float:
 
 
 def phase_cards(pipe, caps):
-    """The sharded path where each shard has a card of its own; on a
-    machine with one card, a line that says so.  One process with a mesh
+    """The sharded path where each shard has a card of its own, staged; on
+    a machine with one card, a line that says so.  One process with a mesh
     over every card, (n, 1) and with four (2, 2): ``extract_fused`` of the
     sparse and dense captures against the unsharded step
-    (``shard_slots``), its step's time beside the single-device step's.
-    Then one process a card joined by NCCL (the FIR tails, the halo heads,
-    the latch transfers and the floor's inputs cross cards through it),
-    each reading its own span of the sparse capture written as four dwell
-    files: the packed step at (n, 1) bit for bit the one-process rows."""
+    (``shard_slots``) and bit for bit its eager form, each stage captured
+    once a device and key; the staged and the eager step by the host clock
+    beside the single-device staged step.  Then one process a card joined
+    by NCCL (the FIR tails, the halo heads and the floor's inputs cross
+    cards through it, between the replays), each reading its own span of
+    the sparse capture written as four dwell files: the packed step at (n,
+    1), staged and eager, bit for bit the one-process rows."""
     import torch
 
     from sdr_channelizer_tpu_torch.parallel import (ShardedPipeline,
@@ -3547,27 +3861,48 @@ def phase_cards(pipe, caps):
         res = {}
         for name, samples in caps.items():
             reset_counts(SHARDED_COUNTS)
+            before = stage_counts(spipe)
             got = spipe.extract_fused(samples, BIT_WIDTH, fs=FS_MAIN)
             counts = read_counts(SHARDED_COUNTS)
-            check(counts["channelize_streams_packed_cm2"] == nt * nc
-                  and counts["latch_cumsums_cm"] == nt * nc,
-                  f"{nt}x{nc} on {n} cards {name}: launch counts {counts}")
+            made = captures_between(before, stage_counts(spipe))
+            check(counts["channelize_streams_packed_cm2"]
+                  == nt * nc + made["_chan_cm2"]
+                  and counts["latch_cumsums_cm"]
+                  == nt * nc + made["_tail_cm2"]
+                  and (name == next(iter(caps))
+                       or not any(made.values())),
+                  f"{nt}x{nc} on {n} cards {name}: launch counts {counts}, "
+                  f"captures {made}")
             pdws_sharded_agree(got, shard_slots(
                 whole[name], pipe.pdw_cfg.max_pulses, nt),
                 f"{nt}x{nc} on {n} cards, {name}")
-            xq = torch.as_tensor(pack(samples), device=devices[0])
+            spipe._eager = True
+            try:
+                pdws_identical(got, spipe.extract_fused(
+                    samples, BIT_WIDTH, fs=FS_MAIN),
+                    f"{nt}x{nc} on {n} cards, {name}: staged vs eager")
+                xq = torch.as_tensor(pack(samples), device=devices[0])
+                eager_ms = host_ms(lambda: spipe.step_packed(xq, BIT_WIDTH),
+                                   devices)
+            finally:
+                spipe._eager = False
             res[name] = {
                 "pulses": len(got["toa"]), "launches": counts,
+                "captures": made, "staged_equals_eager": True,
                 "step_ms": host_ms(lambda: spipe.step_packed(xq, BIT_WIDTH),
                                    devices),
-                "single_device_step_ms": host_ms(
-                    lambda: pipe.forward_packed(xq, BIT_WIDTH), devices[:1])}
+                "eager_step_ms": eager_ms,
+                "single_device_staged_step_ms": host_ms(
+                    lambda: pipe._step_packed(xq, BIT_WIDTH), devices[:1])}
             del xq
+        res["stages"] = stage_counts(spipe)
         out[f"{nt}x{nc}"] = res
 
     job = {"channels": M_MAIN, "pdw": dataclasses.asdict(pipe.pdw_cfg),
            "reps": 5, "runs": [{"name": "", "mesh": [n, 1],
-                                "step": "packed"}]}
+                                "step": "packed"},
+                               {"name": "eager_", "mesh": [n, 1],
+                                "step": "packed", "eager": True}]}
     with tempfile.TemporaryDirectory() as tmp:
         write_dwells(tmp, caps["sparse"], FS_MAIN, BIT_WIDTH)
         t0 = time.perf_counter()
@@ -3576,11 +3911,19 @@ def phase_cards(pipe, caps):
         wall = time.perf_counter() - t0
         one = multihost.run_capture_set(tmp, devices, job)
     rows_agree(ranks, one, f"{n} NCCL processes")
+    for f in multihost.FIELDS:
+        check(np.array_equal(one[f], one["eager_" + f], equal_nan=True),
+              f"{n} cards in one process: staged {f} is not the eager one")
     out["processes"] = {"world": n, "backend": "nccl", "wall_s": wall,
                         "equal_to_one_process": True,
+                        "staged_equals_eager": True,
                         "pulses": int(one["count"].sum()),
                         "step_ms": [float(z["step_ms"]) for z in ranks],
-                        "one_process_step_ms": float(one["step_ms"])}
+                        "eager_step_ms": [float(z["eager_step_ms"])
+                                          for z in ranks],
+                        "one_process_step_ms": float(one["step_ms"]),
+                        "one_process_eager_step_ms": float(
+                            one["eager_step_ms"])}
     emit("cards", **out)
 
 

@@ -10,16 +10,20 @@ sizes run up to the CUDA devices present (one card gives size 1 alone), or
 up to N with ``--cpu-devices N``: a mesh of N shards on the host, which
 checks the harness and the exchanges, not a speed.  Each size runs
 ``ShardedPipeline.step_packed`` on the packed int16 payload (``--fused``,
-the kernels) or ``step`` on the complex capture (the oracle); the capture
-is copied from the host on every step.  A step is timed by the host clock
-over ``--iters`` steps, every device of the mesh synchronised before and
-after.  ``--fixed-total`` shards the same capture at every size, so the
-ratio to size 1 measures the sharding's overhead rather than its scaling.
+the kernels) or ``step`` on the complex capture (the oracle), staged (a
+CUDA graph a stage and device, replayed; the exchanges between the
+replays); the capture is copied from the host on every step.  A step is
+timed by the host clock over ``--iters`` steps, every device of the mesh
+synchronised before and after.  ``--fixed-total`` shards the same capture
+at every size, so the ratio to size 1 measures the sharding's overhead
+rather than its scaling.
 
 Prints one JSON line per mesh size and, with more than one size, a
 summary line, every number unrounded (a slow host mesh reads well under
 0.1 Msamples/s, which a fixed number of places would print as zero);
-diagnostics go to stderr.
+diagnostics go to stderr, among them each size's eager step (the stages'
+functions launched from the host), timed the same way after the staged
+one, to four significant digits.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 def main(argv: Optional[List[str]] = None) -> int:
     from sdr_channelizer_tpu_torch._device import resolve_device
+    from sdr_channelizer_tpu_torch.bench import places
     from sdr_channelizer_tpu_torch.config import PdwConfig
     from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
     from sdr_channelizer_tpu_torch.parallel import ShardedPipeline, make_mesh
@@ -103,14 +108,25 @@ def main(argv: Optional[List[str]] = None) -> int:
                 if d.type == "cuda":
                     torch.cuda.synchronize(d)
 
-        step()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
+        def seconds_a_step() -> float:
             step()
-        sync()
-        dt = (time.perf_counter() - t0) / args.iters
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                step()
+            sync()
+            return (time.perf_counter() - t0) / args.iters
+
+        dt = seconds_a_step()
         msps = n / dt / 1e6
+        pipe._eager = True
+        eager = seconds_a_step()
+        pipe._eager = False
+        print(f"bench_scaling: {n_time}x{n_chan} staged "
+              f"{dt * 1e3:.{places(dt * 1e3)}f} ms/step, eager "
+              f"{eager * 1e3:.{places(eager * 1e3)}f} ms/step "
+              f"({n / eager / 1e6:.{places(n / eager / 1e6)}f} Msamples/s)",
+              file=sys.stderr)
         results[nd] = msps
         if args.fixed_total:
             eff = msps / results[1] if nd > 1 else 1.0

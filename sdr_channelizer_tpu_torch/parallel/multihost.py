@@ -137,10 +137,11 @@ def run_capture_set(directory: str, devices: Sequence, job: dict) -> dict:
     :class:`~sdr_channelizer_tpu_torch.config.PdwConfig` fields),
     ``halo_frames`` and ``halo_mode`` of the pipelines, ``reps`` and
     ``runs``.  A run is ``{"name": prefix, "mesh": [n_time, n_chan],
-    "step": "step" | "packed", "route": ...}``: ``"step"`` is the oracle
-    step on the complex samples (:func:`ingest_capture_set`), ``"packed"``
-    the fused step on the packed payload at the files' bit width
-    (:func:`make_global_capture` of this process's span).  A run gives
+    "step": "step" | "packed", "route": ..., "eager": bool}``: ``"step"``
+    is the oracle step on the complex samples (:func:`ingest_capture_set`),
+    ``"packed"`` the fused step on the packed payload at the files' bit
+    width (:func:`make_global_capture` of this process's span); the steps
+    are staged, or with ``"eager"`` their eager forms.  A run gives
     ``<name>nf``, ``<name><field>`` for each of :data:`FIELDS`,
     ``<name>span`` (``[lo, hi)`` read) and, with ``reps`` > 0,
     ``<name>step_ms``: the median host-clock time of that many steps after
@@ -163,6 +164,7 @@ def run_capture_set(directory: str, devices: Sequence, job: dict) -> dict:
         pipe = ShardedPipeline(mesh, chan, cfg,
                                halo_frames=job.get("halo_frames"),
                                halo_mode=job.get("halo_mode", "warn"))
+        pipe._eager = bool(run.get("eager", False))
         if run["step"] == "step":
             cap = ingest_capture_set(mesh, seg, n)
 

@@ -45,17 +45,45 @@ extraction tail with the block contract.  ``route="cm"`` runs the flat form
 (``w_parts`` too) and exchanges the three time-major streams' halo instead;
 its tail is the kernel tail (``stats="pallas"``) or the oracle block core
 (``"xla"``); ``"auto"`` picks the kernel tail for shards on a card.
+
+Staged steps (the JAX package's six ``jax.jit`` sites, ``_staging``).  A
+``jax.jit`` step holds its collectives; a CUDA graph cannot hold the
+exchanges, so each step is cut at them into stages, each a ``Staged``
+function of one shard's tensors (of one mesh column's for the floor), one
+``Staged`` a stage and device, a graph a key:
+
+* channelize: a shard's frames with the FIR history and (route cm2) the
+  halo head it received, through the channelizer kernel with its column's
+  band slice, or the oracle's FIR and DFT and the detection streams;
+* floor: a column's owned magnitudes gathered along time, their median
+  (the noise floor kernel on the fused routes and wideband), then every
+  row's latch transfer and, by an exclusive prefix of ``compose_transfer``
+  in shard order, every row's latch entry;
+* tail: a shard's streams with their halo, its floor and entry, through
+  the extraction with the block contract; the shard's row, a 0-d device
+  tensor, puts the last row's +inf latch past the capture's end, so that
+  one graph serves every row.
+
+The exchanges (``Mesh.send_right``, ``send_left``, ``gather_time``) run
+eagerly between the replays, on each device's current stream.  On the CPU
+a stage is its function; the private switch ``_eager`` runs the stages'
+functions without graphs on the card too (the last row's latch then a
+copy on that row alone, every other row's the stream itself).
+``sharded_extract_pdws`` and ``sharded_channelize`` keep their staged
+pipeline while the mesh lives.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sdr_channelizer_tpu_torch._staging import MAX_GRAPHS, Staged
 from sdr_channelizer_tpu_torch.config import PdwConfig
 from sdr_channelizer_tpu_torch.dsp import channelizer as chmod
 from sdr_channelizer_tpu_torch.dsp import pdw as pdwmod
@@ -70,6 +98,20 @@ from sdr_channelizer_tpu_torch.parallel.mesh import (
 )
 
 ROUTES = ("auto", "cm2", "cm")
+
+# each stage of the staged steps and its static arguments
+_STAGES = {
+    "_chan_cm2": ("col", "bit_width"),
+    "_chan_cm": ("col", "bit_width"),
+    "_chan_oracle": ("col", "prep"),
+    "_prep_wideband": (),
+    "_floor_cm2": (),
+    "_floor_cm": (),
+    "_floor_median": (),
+    "_floor_1d": (),
+    "_tail_cm2": ("own_len",),
+    "_tail_tm": ("own_len", "kernel"),
+}
 
 
 def _cap_halo(halo: int, t_loc: int, strict: bool = False) -> int:
@@ -107,25 +149,28 @@ def _check_route(route: str) -> None:
         raise ValueError(f"unknown route {route!r}; the routes are {ROUTES}")
 
 
-def _entries(mesh: Mesh, transfers: Dict[Shard, tuple]
-             ) -> Dict[Shard, torch.Tensor]:
-    """Each shard's latch entry state from the blocks' transfer functions:
-    an all-gather along time, then an exclusive prefix of
-    ``compose_transfer`` (not commutative) in shard order; shard 0 enters
-    inactive."""
-    ga = mesh.gather_time({s: f[0] for s, f in transfers.items()})
-    gb = mesh.gather_time({s: f[1] for s, f in transfers.items()})
-    out = {}
-    for j in ga:
-        acc, entry = None, []
-        for a, b in zip(ga[j], gb[j]):
-            entry.append(torch.zeros_like(a) if acc is None else acc[0])
-            acc = (a, b) if acc is None else pdwmod.compose_transfer(acc,
-                                                                     (a, b))
-        for s in mesh.local_shards:
-            if s[1] == j:
-                out[s] = entry[s[0]].to(mesh.device(s))
-    return out
+def _two(xs) -> tuple:
+    """One or two planes' values as two positional arguments, the second
+    None for one plane."""
+    return (*xs, None)[:2]
+
+
+def _past_end(x: torch.Tensor, last, start: int = 0) -> torch.Tensor:
+    """``x`` with +inf from column ``start`` on if ``last``: the latch's
+    magnitude past the capture's end on the last row.  In a staged stage
+    ``last`` is a 0-d bool tensor, so that one graph serves every row; in
+    the eager form it is a host bool: a copy on the last row, ``x`` itself
+    on every other."""
+    if isinstance(last, bool):
+        if not last:
+            return x
+        x = x.clone()
+        x[:, start:] = float("inf")
+        return x
+    if start:
+        cols = torch.arange(x.shape[1], device=x.device)
+        last = last & (cols >= start)
+    return torch.where(last, float("inf"), x)
 
 
 def _stack_batches(mesh: Mesh, batches: Dict[Shard, PdwBatch]) -> PdwBatch:
@@ -154,47 +199,6 @@ def _assemble(mesh: Mesh, parts: Dict[Shard, torch.Tensor]) -> torch.Tensor:
                       for i in range(lo, hi)])
 
 
-def _per_shard(mesh: Mesh, per_column: Dict[int, torch.Tensor]):
-    """A per-column value on each of this process's shards' devices."""
-    return {s: per_column[s[1]].to(mesh.device(s)) for s in mesh.local_shards}
-
-
-def _time_major_tail(mesh: Mesh, cfg: PdwConfig, streams, nf, t_loc: int,
-                     halo: int, kernel: bool) -> Dict[Shard, PdwBatch]:
-    """Per-shard extraction from time-major (t_loc, m_loc) detection streams
-    ``(mag, phase_deg, sat)``: the three streams' right halo comes left (the
-    last shard's magnitude is +inf there), the latch is chained across
-    shards, and the tail is the kernel tail (``kernel``) or the oracle block
-    core.  ``streams`` is emptied shard by shard as each is extracted."""
-    heads = [mesh.send_left({s: v[k][:halo] for s, v in streams.items()})
-             for k in range(3)]
-    entry = _entries(mesh, {
-        s: pdwmod.block_transfer(v[0].T, nf[s][:, None], cfg.snr_threshold_db,
-                                 cfg.trailing_threshold_db)
-        for s, v in streams.items()})
-    out = {}
-    for s in mesh.local_shards:
-        mag, ph, sat = streams.pop(s)
-        hm, hp, hs = (h[s] for h in heads)
-        if hm is None:  # the last shard: past the capture's end
-            hm = torch.full((halo, mag.shape[1]), float("inf"),
-                            device=mag.device)
-            hp = ph.new_zeros((halo, ph.shape[1]))
-            hs = sat.new_zeros((halo, sat.shape[1]))
-        mag_e = torch.cat([mag, hm])
-        ph_e = torch.cat([ph, hp])
-        sat_e = torch.cat([sat, hs]).to(torch.bool)
-        if kernel:
-            out[s] = pdwmod._extract_channelized_pallas_stats(
-                mag_e, ph_e, sat_e, cfg, nf[s], entry_active=entry[s],
-                own_len=t_loc)
-        else:
-            out[s] = pdwmod.extract_pdws_block_core(
-                mag_e.T, ph_e.T, sat_e.T, nf[s], entry[s], own_len=t_loc,
-                **pdwmod._core_kwargs(cfg))
-    return out
-
-
 @dataclasses.dataclass
 class ShardedPipeline:
     """Channelize -> noise floor -> PDW step over a (time, chan) mesh.
@@ -212,6 +216,11 @@ class ShardedPipeline:
     (``parallel.multihost``).  Its batch is stacked over this process's time
     rows, ``(rows, M, max_pulses)``: with one process every row, the JAX
     package's ``(n_time, M, max_pulses)``.
+
+    The steps are staged (the module docstring): each stage captured once
+    a key as a CUDA graph on its device and replayed; what a stage reads
+    besides its tensors (the taps, the band slices, the configuration) is
+    frozen at capture, as ``jax.jit`` freezes it at trace time.
     """
 
     mesh: Mesh
@@ -226,6 +235,12 @@ class ShardedPipeline:
             # full-float32 products on the whole path
             torch.backends.cuda.matmul.allow_tf32 = False
         self._w = None
+        # the stages' Staged functions by (stage, device), made at first
+        # use; ``_eager`` runs the stages' functions instead
+        self._eager = False
+        self._staged: Dict[Tuple[str, str], Staged] = {}
+        self._rows: Dict[Shard, torch.Tensor] = {}
+        self._oracle_w: dict = {}
 
     @classmethod
     def from_reference(
@@ -336,82 +351,270 @@ class ShardedPipeline:
                 for k in range(n_planes)]
         return {s: [h[s] for h in sent] for s in frames}
 
-    # --------------------------------------------------------- the oracle
+    # ------------------------------------------------------------ staging
 
-    def _channelize_oracle(self, frames, t_loc: int, planes: bool):
-        """Each shard's bands: the branch FIR with its history, then the FFT
-        (one mesh column, complex) or the product with its DFT slice."""
-        m = self.channelizer.num_bands
-        hist = self._history(frames, t_loc)
+    def _row(self, s: Shard):
+        """Shard ``s``'s time row, a tail stage's input: a 0-d int64 tensor
+        on its device, so that one graph serves every row, or where the
+        pipeline runs eagerly the row itself (:func:`_past_end`)."""
+        if self._eager:
+            return s[0]
+        row = self._rows.get(s)
+        if row is None:
+            row = self._rows[s] = torch.tensor(s[0], dtype=torch.int64,
+                                               device=self.mesh.device(s))
+        return row
+
+    def _stage(self, name: str, device: torch.device):
+        """Stage ``name`` (a method in ``_STAGES``) on ``device``: its
+        ``Staged`` function, made at first use, or the method itself where
+        the pipeline runs eagerly."""
+        fn = getattr(self, name)
+        if self._eager:
+            return fn
+        key = (name, str(device))
+        staged = self._staged.get(key)
+        if staged is None:
+            staged = self._staged[key] = Staged(fn, device, _STAGES[name])
+        return staged
+
+    def _floor(self, name: str, owned) -> Tuple[dict, torch.Tensor]:
+        """Floor stage ``name`` on each of this process's mesh columns, on
+        ``column_home``, the columns' owned magnitudes gathered along time:
+        each local shard's ``(nf, entry)`` on its device, and the floor
+        (M,) on home."""
+        mesh = self.mesh
+        col = {j: self._stage(name, mesh.column_home(j))(*parts)
+               for j, parts in mesh.gather_time(owned).items()}
+        per = {s: (col[s[1]][0].to(mesh.device(s)),
+                   col[s[1]][1][s[0]].to(mesh.device(s)))
+               for s in mesh.local_shards}
+        return per, torch.cat([col[j][0].to(mesh.home) for j in sorted(col)])
+
+    def _entries(self, nf: torch.Tensor, owned) -> torch.Tensor:
+        """Every row's latch entry state, ``(n_time, m_loc)``, from the
+        owned ``(m_loc, t_loc)`` blocks of a column in time order: each
+        block's transfer function, then an exclusive prefix of
+        ``compose_transfer`` (not commutative) in shard order; row 0 enters
+        inactive."""
+        cfg = self.pdw_cfg
+        acc, entry = None, []
+        for part in owned:
+            f = pdwmod.block_transfer(part, nf[:, None], cfg.snr_threshold_db,
+                                      cfg.trailing_threshold_db)
+            entry.append(torch.zeros_like(f[0]) if acc is None else acc[0])
+            acc = f if acc is None else pdwmod.compose_transfer(acc, f)
+        return torch.stack(entry)
+
+    def _tm_tail(self, streams, per, t_loc: int, halo: int, kernel: bool
+                 ) -> Dict[Shard, PdwBatch]:
+        """Each local shard's batch from its time-major (t_loc, m_loc)
+        detection streams ``(mag, phase_deg, sat)`` and its ``per`` shard
+        ``(nf, entry)``: the three streams' right halo comes left (zeros on
+        the last row, whose tail reads +inf magnitude there), then the tail
+        stage: the kernel tail (``kernel``) or the oracle block core.
+        ``streams`` is emptied shard by shard as each is extracted."""
+        mesh = self.mesh
+        heads = [mesh.send_left({s: v[k][:halo] for s, v in streams.items()})
+                 for k in range(3)]
         out = {}
-        for s, fs_ in frames.items():
-            dev = self.mesh.device(s)
-            taps = torch.as_tensor(self.channelizer.taps_rev, device=dev)
-            us = [chmod.fir_branches(f, taps, h)
-                  for f, h in zip(fs_, hist[s])]
-            w = self._w_cols(s[1])
-            if planes:
-                wr, wi = (torch.as_tensor(np.ascontiguousarray(v), device=dev)
-                          for v in (w.real, w.imag))
-                ur, ui = us
-                out[s] = (ur @ wr - ui @ wi, ur @ wi + ui @ wr)
-            elif self.n_chan == 1:
-                out[s] = chmod._bands(us[0], m, True, "fft")
-            else:
-                out[s] = us[0] @ torch.as_tensor(np.ascontiguousarray(w),
-                                                 device=dev)
+        for s in mesh.local_shards:
+            v = streams.pop(s)
+            h = [torch.zeros_like(v[k][:halo]) if heads[k][s] is None
+                 else heads[k][s] for k in range(3)]
+            out[s] = self._stage("_tail_tm", mesh.device(s))(
+                *v, *h, *per[s], self._row(s), own_len=t_loc, kernel=kernel)
         return out
 
-    def _floor_median(self, mags) -> Tuple[dict, torch.Tensor]:
-        """The oracle floor: each column's owned (t_loc, m_loc) magnitudes
-        gathered along time, the median over time."""
-        nf = {j: median(torch.cat(parts), dim=0)
-              for j, parts in self.mesh.gather_time(mags).items()}
-        return nf, torch.cat([nf[j].to(self.mesh.home) for j in sorted(nf)])
+    # ------------------------------------------------------------- stages
+
+    def _chan_fused(self, planes, hist, col: int, bit_width: int, forms):
+        """The channelizer kernel's form ``forms[len(planes)]`` on a shard's
+        (T, M) frames of one or two planes, with the FIR history ``hist``
+        (None on row 0: the zero initial state) and column ``col``'s band
+        slice."""
+        hist = [h.reshape(-1) for h in hist if h is not None]
+        history = None if not hist else (
+            hist[0] if len(planes) == 1 else tuple(hist))
+        return forms[len(planes)](
+            *(f.reshape(-1) for f in planes), self.channelizer.taps_rev,
+            history=history, bit_width=bit_width,
+            sat_level=self.pdw_cfg.saturation_level,
+            w_parts=self._w_slice(col))
+
+    def _chan_cm2(self, f0, f1, h0, h1, d0, d1, *, col: int,
+                  bit_width: int):
+        """Route cm2's channelize stage on one shard: its (t_loc, M) frames
+        of one or two planes (``f1`` None for the packed payload), the FIR
+        history it received (None on row 0) and the next shard's first
+        ``halo`` frames (zeros on the last row), through the channelizer
+        kernel's channel-major form: ``(mag_cm, dph_cm, satcs_cm)``, (m_loc,
+        t_loc + halo) each."""
+        ext = [torch.cat([f, d]) for f, d in ((f0, d0), (f1, d1))
+               if f is not None]
+        return self._chan_fused(ext, (h0, h1), col, bit_width, {
+            1: kernels.KERNELS.channelize,
+            2: kernels.KERNELS.channelize_planes})
+
+    def _chan_cm(self, f0, f1, h0, h1, *, col: int, bit_width: int):
+        """Route cm's channelize stage on one shard: the channelizer
+        kernel's flat form on its frames with the FIR history it received,
+        the time-major (t_loc, m_loc) ``(mag, phase_deg, sat)``."""
+        return self._chan_fused([f for f in (f0, f1) if f is not None],
+                                (h0, h1), col, bit_width, {
+                                    1: kernels.KERNELS.channelize_flat,
+                                    2: kernels.KERNELS.channelize_flat_planes})
+
+    def _oracle_weights(self, device: torch.device, col: int, planes: bool):
+        """The taps and mesh column ``col``'s DFT columns on ``device``
+        (complex, or their real and imaginary planes; None where one mesh
+        column takes the FFT), made once: a captured stage reads them by
+        address."""
+        key = (str(device), col, planes)
+        hit = self._oracle_w.get(key)
+        if hit is None:
+            w = self._w_cols(col)
+            if planes:
+                w = tuple(torch.as_tensor(np.ascontiguousarray(v),
+                                          device=device)
+                          for v in (w.real, w.imag))
+            elif self.n_chan == 1:
+                w = None
+            else:
+                w = torch.as_tensor(np.ascontiguousarray(w), device=device)
+            hit = self._oracle_w[key] = (
+                torch.as_tensor(self.channelizer.taps_rev, device=device), w)
+        return hit
+
+    def _chan_oracle(self, f0, f1, h0, h1, *, col: int, prep: bool):
+        """The oracle's channelize stage on one shard: the branch FIR over
+        its (t_loc, M) frames (complex, or two float32 planes) with the
+        history it received, then the FFT (one mesh column, complex) or the
+        product with column ``col``'s DFT slice.  Returns the bands ``y``
+        (or ``(yr, yi)``), with ``prep`` followed by their detection
+        streams ``(mag, phase_deg, sat)``."""
+        taps, w = self._oracle_weights(f0.device, col, f1 is not None)
+        level = self.pdw_cfg.saturation_level
+        if f1 is not None:
+            ur, ui = (chmod.fir_branches(f, taps, h)
+                      for f, h in ((f0, h0), (f1, h1)))
+            wr, wi = w
+            y = (ur @ wr - ui @ wi, ur @ wi + ui @ wr)
+            return (*y, *pdwmod._prep_streams_planes(*y, level)) if prep \
+                else y
+        u = chmod.fir_branches(f0, taps, h0)
+        y = chmod._bands(u, self.channelizer.num_bands, True, "fft") \
+            if w is None else u @ w
+        return (y, *pdwmod._prep_streams(y, level)) if prep else y
+
+    def _prep_wideband(self, x):
+        """Wideband's prep stage on one shard: the (t_loc, 1) detection
+        streams of its complex samples."""
+        return tuple(v[:, None] for v in pdwmod._prep_streams(
+            x.to(torch.complex64), self.pdw_cfg.saturation_level))
+
+    def _floor_cm2(self, *owned):
+        """Route cm2's floor stage on a mesh column: its ``n_time`` owned
+        channel-major (m_loc, t_loc) magnitudes in time order -> ``(nf,
+        entries)``: the noise floor kernel on them gathered into one (m_loc,
+        T) buffer (the grid has no pad columns to mask), then every row's
+        latch entry (:meth:`_entries`)."""
+        buf = torch.cat(owned, dim=1)
+        nf = pdwmod.noise_floor_cm(buf, buf.shape[0], buf.shape[1])
+        return nf, self._entries(nf, owned)
+
+    def _floor_cm(self, *mags):
+        """Route cm's floor stage: :meth:`_floor_cm2` on the time-major
+        (t_loc, m_loc) magnitudes turned channel-major."""
+        return self._floor_cm2(*(m.T.contiguous() for m in mags))
+
+    def _floor_median(self, *mags):
+        """The oracle's floor stage: the median over time of the
+        time-major (t_loc, m_loc) magnitudes, then every row's entry."""
+        nf = median(torch.cat(mags), dim=0)
+        return nf, self._entries(nf, [m.T for m in mags])
+
+    def _floor_1d(self, *mags):
+        """Wideband's floor stage: the noise floor kernel's one row on the
+        (t_loc,) magnitudes joined, as a (1,) floor, then every row's
+        entry."""
+        nf = pdwmod.noise_floor_1d(torch.cat(mags)).reshape(1)
+        return nf, self._entries(nf, [m[None] for m in mags])
+
+    def _tail_cm2(self, mag_cm, dph_cm, satcs_cm, nf, entry, row, *,
+                  own_len: int):
+        """Route cm2's tail stage on one shard: its (m_loc, t_loc + halo)
+        streams, floor and latch entry -> its ``PdwBatch`` by the cm2 tail
+        with the block contract.  On the last row (``row``, :meth:`_row`)
+        the latch reads +inf magnitude past ``own_len``, so that a pulse
+        still open at the capture's end never closes."""
+        latch = _past_end(mag_cm, row == self.n_time - 1, own_len)
+        return pdwmod._extract_channelized_cm2(
+            mag_cm, dph_cm, satcs_cm, self.pdw_cfg, nf, mag_cm.shape[1],
+            mag_cm.shape[0], entry_active=entry, own_len=own_len,
+            mag_latch_cm=latch)
+
+    def _tail_tm(self, mag, ph, sat, hm, hp, hs, nf, entry, row, *,
+                 own_len: int, kernel: bool):
+        """The time-major tail stage on one shard: its (t_loc, m_loc)
+        streams and the next shard's first ``halo`` rows of each (zeros on
+        the last row, whose magnitude head reads +inf: past the capture's
+        end), its floor and latch entry -> its ``PdwBatch`` by the kernel
+        tail (``kernel``) or the oracle block core."""
+        hm = _past_end(hm, row == self.n_time - 1)
+        mag_e = torch.cat([mag, hm])
+        ph_e = torch.cat([ph, hp])
+        sat_e = torch.cat([sat, hs]).to(torch.bool)
+        if kernel:
+            return pdwmod._extract_channelized_pallas_stats(
+                mag_e, ph_e, sat_e, self.pdw_cfg, nf, entry_active=entry,
+                own_len=own_len)
+        return pdwmod.extract_pdws_block_core(
+            mag_e.T, ph_e.T, sat_e.T, nf, entry, own_len=own_len,
+            **pdwmod._core_kwargs(self.pdw_cfg))
+
+    # --------------------------------------------------------- the oracle
+
+    def _oracle(self, frames, t_loc: int, prep: bool):
+        """Each local shard's oracle channelize stage (:meth:`_chan_oracle`)
+        after the FIR history's exchange."""
+        hist = self._history(frames, t_loc)
+        return {s: self._stage("_chan_oracle", self.mesh.device(s))(
+            *_two(fs_), *_two(hist[s]), col=s[1], prep=prep)
+            for s, fs_ in frames.items()}
 
     def step(self, x):
         """The oracle step on a complex capture.  Returns ``(chan_iq
         (rows * t_loc, M), noise_floor (M,), batch)``."""
         cap = self._capture(x)
         t_loc, halo, _ = self._geometry(cap.n_samples, fused=False)
-        frames = self._frames([cap], t_loc, torch.complex64)
-        y = self._channelize_oracle(frames, t_loc, planes=False)
-        nf_col, nf = self._floor_median({s: v.abs() for s, v in y.items()})
-        nf_s = _per_shard(self.mesh, nf_col)
-        streams = {s: pdwmod._prep_streams(v, self.pdw_cfg.saturation_level)
-                   for s, v in y.items()}
-        batches = _time_major_tail(self.mesh, self.pdw_cfg, streams, nf_s,
-                                   t_loc, halo, kernel=False)
-        return _assemble(self.mesh, y), nf, _stack_batches(self.mesh, batches)
+        out = self._oracle(self._frames([cap], t_loc, torch.complex64),
+                           t_loc, prep=True)
+        per, nf = self._floor("_floor_median",
+                              {s: v[1] for s, v in out.items()})
+        y = _assemble(self.mesh, {s: v[0] for s, v in out.items()})
+        streams = {s: v[1:] for s, v in out.items()}
+        del out
+        batches = self._tm_tail(streams, per, t_loc, halo, kernel=False)
+        return y, nf, _stack_batches(self.mesh, batches)
 
     def step_planes(self, xr, xi):
         """The complex-free oracle step on float32 sample planes.  Returns
         ``(yr, yi, noise_floor, batch)``."""
         caps = [self._capture(xr), self._capture(xi)]
         t_loc, halo, _ = self._geometry(caps[0].n_samples, fused=False)
-        frames = self._frames(caps, t_loc, torch.float32)
-        y = self._channelize_oracle(frames, t_loc, planes=True)
-        streams = {s: pdwmod._prep_streams_planes(
-            yr, yi, self.pdw_cfg.saturation_level) for s, (yr, yi) in y.items()}
-        nf_col, nf = self._floor_median({s: v[0] for s, v in streams.items()})
-        nf_s = _per_shard(self.mesh, nf_col)
-        batches = _time_major_tail(self.mesh, self.pdw_cfg, streams, nf_s,
-                                   t_loc, halo, kernel=False)
-        yr = _assemble(self.mesh, {s: v[0] for s, v in y.items()})
-        yi = _assemble(self.mesh, {s: v[1] for s, v in y.items()})
+        out = self._oracle(self._frames(caps, t_loc, torch.float32), t_loc,
+                           prep=True)
+        per, nf = self._floor("_floor_median",
+                              {s: v[2] for s, v in out.items()})
+        yr = _assemble(self.mesh, {s: v[0] for s, v in out.items()})
+        yi = _assemble(self.mesh, {s: v[1] for s, v in out.items()})
+        streams = {s: v[2:] for s, v in out.items()}
+        del out
+        batches = self._tm_tail(streams, per, t_loc, halo, kernel=False)
         return yr, yi, nf, _stack_batches(self.mesh, batches)
 
     # ------------------------------------------------------- fused routes
-
-    def _floor_kernel(self, owned) -> Tuple[dict, torch.Tensor]:
-        """The noise floor kernel on each column's owned channel-major
-        (m_loc, t_loc) columns, gathered along time into one (m_loc, T)
-        buffer (the grid has no pad columns to mask)."""
-        nf = {}
-        for j, parts in self.mesh.gather_time(owned).items():
-            buf = torch.cat(parts, dim=1)
-            nf[j] = pdwmod.noise_floor_cm(buf, buf.shape[0], buf.shape[1])
-        return nf, torch.cat([nf[j].to(self.mesh.home) for j in sorted(nf)])
 
     def _step_cm2(self, caps: List[ShardedCapture], bit_width: int):
         """The cm2 composition: each shard's raw (P-1)-frame tail goes right
@@ -422,47 +625,25 @@ class ShardedPipeline:
         the cm2 tail extracts with the block contract (latch magnitude +inf
         past the capture's end on the last shard).  The saturation count is
         per shard: the tail only ever differences it."""
-        cfg, mesh = self.pdw_cfg, self.mesh
-        t_loc, halo, m_loc = self._geometry(caps[0].n_samples, fused=True)
-        taps = self.channelizer.taps_rev
+        mesh = self.mesh
+        t_loc, halo, _ = self._geometry(caps[0].n_samples, fused=True)
         frames = self._frames(caps, t_loc)
         hist = self._history(frames, t_loc)
         heads = [mesh.send_left({s: f[k][:halo] for s, f in frames.items()})
                  for k in range(len(caps))]
         streams = {}
         for s, fs_ in frames.items():
-            ext = [torch.cat([f, f.new_zeros((halo, f.shape[1]))
-                              if h[s] is None else h[s]]).reshape(-1)
-                   for f, h in zip(fs_, heads)]
-            hs = [None if h is None else h.reshape(-1) for h in hist[s]]
-            kw = dict(bit_width=bit_width, sat_level=cfg.saturation_level,
-                      w_parts=self._w_slice(s[1]))
-            if len(caps) == 1:
-                streams[s] = kernels.KERNELS.channelize(
-                    ext[0], taps, history=hs[0], **kw)
-            else:
-                streams[s] = kernels.KERNELS.channelize_planes(
-                    ext[0], ext[1], taps,
-                    history=None if hs[0] is None else tuple(hs), **kw)
+            ds = [f.new_zeros((halo, f.shape[1])) if h[s] is None else h[s]
+                  for f, h in zip(fs_, heads)]
+            streams[s] = self._stage("_chan_cm2", mesh.device(s))(
+                *_two(fs_), *_two(hist[s]), *_two(ds), col=s[1],
+                bit_width=bit_width)
         del frames, heads, hist
-        nf_col, nf = self._floor_kernel(
-            {s: v[0][:, :t_loc] for s, v in streams.items()})
-        nf_s = _per_shard(mesh, nf_col)
-        entry = _entries(mesh, {
-            s: pdwmod.block_transfer(v[0][:, :t_loc], nf_s[s][:, None],
-                                     cfg.snr_threshold_db,
-                                     cfg.trailing_threshold_db)
-            for s, v in streams.items()})
-        batches = {}
-        for s in mesh.local_shards:
-            mag_cm, dph_cm, satcs_cm = streams.pop(s)
-            latch = mag_cm
-            if s[0] == self.n_time - 1:
-                latch = mag_cm.clone()
-                latch[:, t_loc:] = float("inf")
-            batches[s] = pdwmod._extract_channelized_cm2(
-                mag_cm, dph_cm, satcs_cm, cfg, nf_s[s], t_loc + halo, m_loc,
-                entry_active=entry[s], own_len=t_loc, mag_latch_cm=latch)
+        per, nf = self._floor("_floor_cm2",
+                              {s: v[0][:, :t_loc] for s, v in streams.items()})
+        batches = {s: self._stage("_tail_cm2", mesh.device(s))(
+            *streams.pop(s), *per[s], self._row(s), own_len=t_loc)
+            for s in mesh.local_shards}
         return nf, _stack_batches(mesh, batches)
 
     def _step_cm(self, caps: List[ShardedCapture], bit_width: int,
@@ -470,34 +651,30 @@ class ShardedPipeline:
         """Route cm: the channelizer kernel's flat form on each shard's
         block with its FIR history and band slice, the floor on the owned
         magnitudes, then the time-major tail with the three streams' halo."""
-        cfg, mesh = self.pdw_cfg, self.mesh
+        mesh = self.mesh
         t_loc, halo, _ = self._geometry(caps[0].n_samples, fused=True)
         kernel = pdwmod._kernel_tail(stats, next(iter(caps[0].parts.values())))
-        taps = self.channelizer.taps_rev
         frames = self._frames(caps, t_loc)
         hist = self._history(frames, t_loc)
-        streams = {}
-        for s, fs_ in frames.items():
-            kw = dict(bit_width=bit_width, sat_level=cfg.saturation_level,
-                      w_parts=self._w_slice(s[1]))
-            hs = hist[s]
-            if len(caps) == 1:
-                streams[s] = kernels.KERNELS.channelize_flat(
-                    fs_[0].reshape(-1), taps,
-                    history=None if hs[0] is None else hs[0].reshape(-1),
-                    **kw)
-            else:
-                streams[s] = kernels.KERNELS.channelize_flat_planes(
-                    fs_[0].reshape(-1), fs_[1].reshape(-1), taps,
-                    history=None if hs[0] is None else tuple(
-                        h.reshape(-1) for h in hs), **kw)
+        streams = {s: self._stage("_chan_cm", mesh.device(s))(
+            *_two(fs_), *_two(hist[s]), col=s[1], bit_width=bit_width)
+            for s, fs_ in frames.items()}
         del frames, hist
-        nf_col, nf = self._floor_kernel(
-            {s: v[0].T.contiguous() for s, v in streams.items()})
-        batches = _time_major_tail(mesh, cfg, streams,
-                                   _per_shard(mesh, nf_col), t_loc, halo,
-                                   kernel)
-        return nf, _stack_batches(mesh, batches)
+        per, nf = self._floor("_floor_cm",
+                              {s: v[0] for s, v in streams.items()})
+        return nf, _stack_batches(mesh, self._tm_tail(streams, per, t_loc,
+                                                      halo, kernel))
+
+    def _wideband(self, cap: ShardedCapture, t_loc: int, halo: int
+                  ) -> PdwBatch:
+        """The wideband step (:func:`sharded_extract_pdws`) on a capture
+        laid out over the mesh."""
+        streams = {s: self._stage("_prep_wideband", self.mesh.device(s))(v)
+                   for s, v in cap.parts.items()}
+        per, _ = self._floor("_floor_1d",
+                             {s: v[0][:, 0] for s, v in streams.items()})
+        return _stack_batches(self.mesh, self._tm_tail(streams, per, t_loc,
+                                                       halo, kernel=True))
 
     def _route(self, n_samples: int, stats: str, route: str) -> str:
         _check_route(route)
@@ -622,6 +799,39 @@ def merge_block_batches(batch: PdwBatch, block_len_frames: int) -> PdwBatch:
     )
 
 
+# the staged pipelines behind the free functions, by the id of their mesh:
+# a kept pipeline holds its mesh weakly, and the mesh's finalizer drops its
+# entry, so that dropping the mesh frees its pipelines and their graphs at
+# once (no cycle waits for the collector, which device memory never runs)
+_KEPT: Dict[int, Dict[tuple, ShardedPipeline]] = {}
+
+
+def _mesh_pipeline(mesh: Mesh, key: tuple, make) -> ShardedPipeline:
+    """The staged pipeline behind a free function's calls over ``mesh``:
+    ``make(proxy)`` at the first call with ``key`` (the function and its
+    parameters), ``proxy`` a weak proxy of the mesh, then kept while the
+    mesh lives, so that a later call replays its graphs; of more than
+    ``MAX_GRAPHS`` the least recently used is dropped."""
+    kept = _KEPT.get(id(mesh))
+    if kept is None:
+        kept = _KEPT[id(mesh)] = {}
+        weakref.finalize(mesh, _KEPT.pop, id(mesh), None)
+    pipe = kept.pop(key, None)
+    if pipe is None:
+        pipe = make(weakref.proxy(mesh))
+    kept[key] = pipe
+    if len(kept) > MAX_GRAPHS:
+        kept.pop(next(iter(kept)))
+    return pipe
+
+
+def _wideband_pipeline(mesh: Mesh, cfg: PdwConfig) -> ShardedPipeline:
+    """The staged pipeline of :func:`sharded_extract_pdws` on ``mesh`` with
+    ``cfg`` (no channelizer: its wideband stages need none)."""
+    return _mesh_pipeline(mesh, ("wideband", cfg),
+                          lambda m: ShardedPipeline(m, None, cfg))
+
+
 def sharded_extract_pdws(
     x,
     cfg: PdwConfig,
@@ -635,6 +845,7 @@ def sharded_extract_pdws(
     the latch chained across shards, halo-stitched pulses, and on each
     shard the kernel tail of the blocked wideband extractor
     (``dsp.pdw._extract_wideband_blocked``), its plain versions on the CPU.
+    Its stages are staged, kept while the mesh lives for later calls.
 
     Returns ``(batch, block_len)`` with batch fields ``(rows, 1,
     max_pulses)``; merge with :func:`merge_block_batches` and finalize with
@@ -649,18 +860,7 @@ def sharded_extract_pdws(
                          f"shards")
     t_loc = n // mesh.n_time
     halo = _cap_halo(halo_samples or cfg.max_pulse_samples, t_loc, strict_halo)
-    streams = {}
-    for s, v in cap.parts.items():
-        mag, ph, sat = pdwmod._prep_streams(v.to(torch.complex64),
-                                            cfg.saturation_level)
-        streams[s] = (mag[:, None], ph[:, None], sat[:, None])
-    nf = {}
-    for j, parts in mesh.gather_time({s: v[0][:, 0]
-                                      for s, v in streams.items()}).items():
-        nf[j] = pdwmod.noise_floor_1d(torch.cat(parts)).reshape(1)
-    batches = _time_major_tail(mesh, cfg, streams, _per_shard(mesh, nf),
-                               t_loc, halo, kernel=True)
-    return _stack_batches(mesh, batches), t_loc
+    return _wideband_pipeline(mesh, cfg)._wideband(cap, t_loc, halo), t_loc
 
 
 def sharded_channelize(
@@ -672,7 +872,8 @@ def sharded_channelize(
 
     Equals ``dsp.channelizer.channelize(x, chan)``: bit for bit with one
     mesh column, within DFT-vs-FFT rounding otherwise.  Returns this
-    process's rows, ``(rows * t_loc, M)``.
+    process's rows, ``(rows * t_loc, M)``.  Its stage is staged, kept while
+    the mesh lives for later calls with ``chan``.
     """
     m = chan.num_bands
     n_frames = len(x) // m
@@ -682,9 +883,10 @@ def sharded_channelize(
     if m % mesh.n_chan:
         raise ValueError(f"num_bands {m} not divisible by chan mesh axis "
                          f"{mesh.n_chan}")
-    pipe = ShardedPipeline(mesh, chan, PdwConfig.channelized())
+    # keyed by identity: the kept pipeline holds ``chan``
+    pipe = _mesh_pipeline(mesh, ("channelize", id(chan)), lambda m:
+                          ShardedPipeline(m, chan, PdwConfig.channelized()))
     cap = shard_capture(mesh, x[: n_frames * m])
     t_loc = n_frames // mesh.n_time
-    frames = pipe._frames([cap], t_loc, torch.complex64)
-    return _assemble(mesh, pipe._channelize_oracle(frames, t_loc,
-                                                    planes=False))
+    return _assemble(mesh, pipe._oracle(
+        pipe._frames([cap], t_loc, torch.complex64), t_loc, prep=False))
