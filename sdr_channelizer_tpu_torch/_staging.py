@@ -15,6 +15,10 @@ static arguments and the ``allow_tf32`` switch.
   one host-to-device copy), replays the graph and returns clones of the
   outputs, ``PdwBatch`` fields included, so that each call's results are
   its own, as ``jax.jit``'s are.
+* On the card a call records the spans ``staged.capture`` (the eager
+  run and the capture, a miss) or ``staged.copy_in`` (a hit, with the
+  counter ``staged.copy_in_bytes``), then ``staged.replay`` and
+  ``staged.clone`` (``utils.profiling``; nothing while spans are off).
 * At most ``MAX_GRAPHS`` keys are kept, the least recently used dropped
   first: each graph's pool holds the step's peak memory.
 * A replay runs no Python, so the kernel wrappers' launch counts would
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 
 from sdr_channelizer_tpu_torch._device import resolve_device
+from sdr_channelizer_tpu_torch.utils import profiling
 
 MAX_GRAPHS = 4
 
@@ -195,14 +200,19 @@ class Staged:
             entry = self._graphs.get(key)
             if entry is None:
                 self.misses += 1
-                entry = self._capture(fn, key, args, static)
+                with profiling.span("staged.capture"):
+                    entry = self._capture(fn, key, args, static)
             else:
                 self.hits += 1
                 self._graphs.move_to_end(key)
-                self._copy_in(entry.inputs, args)
-            entry.graph.replay()
-            _add_launch_counts(entry.launches)
-            return map_tensors(torch.Tensor.clone, entry.outputs)
+                with profiling.span("staged.copy_in"):
+                    profiling.count("staged.copy_in_bytes",
+                                    self._copy_in(entry.inputs, args))
+            with profiling.span("staged.replay"):
+                entry.graph.replay()
+                _add_launch_counts(entry.launches)
+            with profiling.span("staged.clone"):
+                return map_tensors(torch.Tensor.clone, entry.outputs)
 
     def _buffer(self, x) -> Optional[torch.Tensor]:
         if x is None:
@@ -214,11 +224,17 @@ class Staged:
         return torch.empty_like(x, device=self.device)
 
     @staticmethod
-    def _copy_in(buffers: list, args) -> None:
+    def _copy_in(buffers: list, args) -> int:
+        """Copy ``args`` into ``buffers``; returns the bytes that came from
+        the host."""
+        host_bytes = 0
         for buf, x in zip(buffers, args):
             if buf is not None:
-                buf.copy_(_host_tensor(x) if isinstance(x, np.ndarray)
-                          else x)
+                src = _host_tensor(x) if isinstance(x, np.ndarray) else x
+                buf.copy_(src)
+                if not src.is_cuda:
+                    host_bytes += src.nbytes
+        return host_bytes
 
     def _capture(self, fn: Callable, key: tuple, args, static) -> _Graph:
         inputs = [self._buffer(x) for x in args]

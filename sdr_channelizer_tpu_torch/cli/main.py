@@ -314,7 +314,7 @@ def _pdw_stream(args) -> int:
               f"{seg.num_samples} samples): {len(pdws['toa'])} pulses")
     counters.add("files_processed", len(args.files))
     if args.metrics:
-        print(counters.to_json())
+        print(_metrics_line(counters))
     return _save_pdws(args, all_pdws)
 
 
@@ -373,13 +373,42 @@ def _pdw_sharded_wideband(args, x, cfg, fs, fc, t0) -> dict:
                          sample_start_time=t0)
 
 
+def _metrics_line(counters) -> str:
+    """``--metrics``' JSON line: the counters' snapshot, the program's
+    spans by name (``count``, ``total_s``, ``self_s``) and its span
+    counters (``utils.profiling``)."""
+    import json
+
+    from sdr_channelizer_tpu_torch.utils import profiling
+
+    recorded = profiling.snapshot()
+    line = counters.snapshot()
+    line["spans"] = recorded["spans"]
+    line["span_counters"] = recorded["counters"]
+    return json.dumps(line, sort_keys=True)
+
+
 def cmd_pdw(args) -> int:
     """create_pdws.m parity (wideband) and, with ``--channelized``,
     create_pdws_channelized.m parity, for every capture container: an
     integer payload (``.iq``, a raw ``.npz`` or ``.mat``) goes packed
     through the main path (``extract_fused``), a float one (a normalised
     ``.npz`` or ``.mat``, a legacy ``.bin``) through ``extract``; with
-    ``--stream``, blockwise over contiguous multi-file ``.iq`` segments."""
+    ``--stream``, blockwise over contiguous multi-file ``.iq`` segments.
+    ``--metrics`` records the program's spans over the run and prints them
+    with the counters."""
+    from sdr_channelizer_tpu_torch.utils import profiling
+
+    if not args.metrics:
+        return _pdw(args)
+    profiling.enable()
+    try:
+        return _pdw(args)
+    finally:
+        profiling.disable()
+
+
+def _pdw(args) -> int:
     from sdr_channelizer_tpu_torch.config import PdwConfig
     from sdr_channelizer_tpu_torch.io import iqpacket
     from sdr_channelizer_tpu_torch.io.convert import load_capture_payload
@@ -387,10 +416,12 @@ def cmd_pdw(args) -> int:
         ChannelizerPipeline,
         WidebandPdwPipeline,
     )
+    from sdr_channelizer_tpu_torch.utils.metrics import Counters
 
     if args.stream:
         return _pdw_stream(args)
 
+    counters = Counters()
     all_pdws = []
     for path in args.files:
         raw, bw, iq, meta = load_capture_payload(path)
@@ -437,6 +468,9 @@ def cmd_pdw(args) -> int:
             pdws = pipe.extract(iq[:n], fs=fs, fc=fc, sample_start_time=t0)
         all_pdws.append(pdws)
         print(f"{path}: {len(pdws['toa'])} pulses")
+    counters.add("files_processed", len(args.files))
+    if args.metrics:
+        print(_metrics_line(counters))
     return _save_pdws(args, all_pdws)
 
 
@@ -744,7 +778,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--checkpoint-dir", default=None,
                    help="per-block checkpoint/resume directory (--stream)")
     p.add_argument("--metrics", action="store_true",
-                   help="print a structured-counters JSON line (--stream)")
+                   help="print a JSON line of the counters and the "
+                        "program's spans")
     _add_device_arg(p)
     p.add_argument("--out", default=None)
     p.add_argument("--png", default=None,

@@ -62,6 +62,7 @@ from sdr_channelizer_tpu_torch.ops import cuda as kernels
 from sdr_channelizer_tpu_torch.ops.cuda import transpose_kernel
 from sdr_channelizer_tpu_torch.ops.medians import masked_median, median
 from sdr_channelizer_tpu_torch.ops.rank_find import find_ranks_cm
+from sdr_channelizer_tpu_torch.utils import profiling
 
 # Closed pulses up to this many samples go through the statistics kernel
 # with this window; longer ones with ``max_pulse_samples``.
@@ -1088,44 +1089,54 @@ def finalize_pdws(
 
     Returns a dict of 1-D numpy arrays sorted by TOA:
     ``toa, freq, pw, mag, snr, sat, channel``.
+
+    Spans (``utils.profiling``): ``finalize.wait``, while spans are on and
+    the batch is on a CUDA device, waits for the step ahead of the
+    transfers, which the first transfer waits for otherwise;
+    ``finalize.d2h`` the transfers, ``finalize.host`` the rest.
     """
     def host(x, dtype):
         if isinstance(x, torch.Tensor):
             x = x.detach().cpu().numpy()
         return np.asarray(x, dtype)
 
-    toa_idx = host(batch.toa_idx, np.int64)
-    te_idx = host(batch.te_idx, np.int64)
-    valid = host(batch.valid, bool)
-    mag = host(batch.mag, np.float64)
-    snr = host(batch.snr_db, np.float64)
-    foff = host(batch.freq_offset_hz, np.float64)
-    sat = host(batch.saturated, bool)
+    if profiling.enabled() and getattr(batch.toa_idx, "is_cuda", False):
+        with profiling.span("finalize.wait"):
+            profiling.sync_device(batch)
+    with profiling.span("finalize.d2h"):
+        toa_idx = host(batch.toa_idx, np.int64)
+        te_idx = host(batch.te_idx, np.int64)
+        valid = host(batch.valid, bool)
+        mag = host(batch.mag, np.float64)
+        snr = host(batch.snr_db, np.float64)
+        foff = host(batch.freq_offset_hz, np.float64)
+        sat = host(batch.saturated, bool)
 
-    if toa_idx.ndim == 1:
-        channel = np.zeros_like(toa_idx)
-        bin_off = np.zeros(1)
-    else:
-        m = toa_idx.shape[0]
-        channel = np.broadcast_to(np.arange(m)[:, None], toa_idx.shape)
-        bin_off = (np.zeros(m) if bin_offsets_hz is None
-                   else np.asarray(bin_offsets_hz, np.float64))
+    with profiling.span("finalize.host"):
+        if toa_idx.ndim == 1:
+            channel = np.zeros_like(toa_idx)
+            bin_off = np.zeros(1)
+        else:
+            m = toa_idx.shape[0]
+            channel = np.broadcast_to(np.arange(m)[:, None], toa_idx.shape)
+            bin_off = (np.zeros(m) if bin_offsets_hz is None
+                       else np.asarray(bin_offsets_hz, np.float64))
 
-    sel = valid.ravel()
-    ch = channel.ravel()[sel]
-    i0 = toa_idx.ravel()[sel]
-    i1 = te_idx.ravel()[sel]
-    toa = (i0 + 1) / fs + sample_start_time
-    pw = (i1 - i0) / fs
-    freq = fc + bin_off[ch] + foff.ravel()[sel] * fs
+        sel = valid.ravel()
+        ch = channel.ravel()[sel]
+        i0 = toa_idx.ravel()[sel]
+        i1 = te_idx.ravel()[sel]
+        toa = (i0 + 1) / fs + sample_start_time
+        pw = (i1 - i0) / fs
+        freq = fc + bin_off[ch] + foff.ravel()[sel] * fs
 
-    order = np.argsort(toa, kind="stable")
-    return {
-        "toa": toa[order],
-        "freq": freq[order],
-        "pw": pw[order],
-        "mag": mag.ravel()[sel][order],
-        "snr": snr.ravel()[sel][order],
-        "sat": sat.ravel()[sel][order],
-        "channel": ch[order],
-    }
+        order = np.argsort(toa, kind="stable")
+        return {
+            "toa": toa[order],
+            "freq": freq[order],
+            "pw": pw[order],
+            "mag": mag.ravel()[sel][order],
+            "snr": snr.ravel()[sel][order],
+            "sat": sat.ravel()[sel][order],
+            "channel": ch[order],
+        }

@@ -36,6 +36,12 @@ once a key.  The latch entry is chained on the device; a block's transfer
 comes to the host only where a checkpoint is written.  ``plain=True`` runs
 every step eagerly.
 
+Spans (``utils.profiling``): ``entry.extract_segment[_fused]`` around a
+segment, ``stream.read`` around each block's read from the files,
+``stream.floor`` around the exact floor's measure (its reads, uploads and
+steps are spans of their own), ``stream.to_host`` around each block's
+batch brought to the host.
+
 Noise floors: the reference uses the median over the *whole* capture, which
 no single streaming pass can produce.  ``noise_floor="two_pass"`` (default)
 measures exact floors with streamed counting passes and then detects;
@@ -65,6 +71,7 @@ from sdr_channelizer_tpu_torch.dsp.channelizer import (
 from sdr_channelizer_tpu_torch.io import iqpacket
 from sdr_channelizer_tpu_torch.ops import cuda as kernels
 from sdr_channelizer_tpu_torch.ops import medians
+from sdr_channelizer_tpu_torch.utils import profiling
 from sdr_channelizer_tpu_torch.utils.metrics import Counters
 
 _FIELD_NAMES = ("toa_idx", "te_idx", "pw_sec", "mag", "snr_db",
@@ -641,7 +648,8 @@ class StreamingExtractor:
                    if checkpoint_dir else None)
         if nf_path and os.path.exists(nf_path):
             return self._on_device(np.load(nf_path)["nf"])
-        nf = np.asarray(measure(), np.float32)
+        with profiling.span("stream.floor"):
+            nf = np.asarray(measure(), np.float32)
         if nf_path:
             np.savez(nf_path, nf=nf)
         return self._on_device(nf)
@@ -672,7 +680,8 @@ class StreamingExtractor:
             else:
                 h_k = min(self._halo, n_frames - f0 - t_k)
                 batch, a, b = process_block(f0, t_k, h_k, entry)
-                batch = pdwmod.batch_to_host(batch)
+                with profiling.span("stream.to_host"):
+                    batch = pdwmod.batch_to_host(batch)
                 if path:
                     np.savez(
                         path, a=a.cpu().numpy(), b=b.cpu().numpy(),
@@ -684,6 +693,7 @@ class StreamingExtractor:
                               segment.headers[0].sample_rate_sps, fc,
                               segment.start_time)
 
+    @profiling.spanned("entry.extract_segment")
     def extract_segment(
         self,
         segment: Segment,
@@ -719,9 +729,10 @@ class StreamingExtractor:
 
         def process_block(f0, t_k, h_k, entry):
             hist_frames = min(p - 1, f0)
-            raw = segment.read_samples(
-                (f0 - hist_frames) * m, (hist_frames + t_k + h_k) * m
-            ).reshape(-1, m)
+            with profiling.span("stream.read"):
+                raw = segment.read_samples(
+                    (f0 - hist_frames) * m, (hist_frames + t_k + h_k) * m
+                ).reshape(-1, m)
             y = self._on_device(raw)
             if not wideband:
                 hist = torch.zeros((p, m), dtype=torch.complex64,
@@ -740,6 +751,7 @@ class StreamingExtractor:
         return self._run_blocks(segment, n_frames, n_blocks, ck,
                                 process_block, fc)
 
+    @profiling.spanned("entry.extract_segment_fused")
     def extract_segment_fused(
         self,
         segment: Segment,
@@ -793,8 +805,9 @@ class StreamingExtractor:
             """(packed history or None, packed block), over frames
             [f0 - hist, f0 + t_k + h_k)."""
             hist_frames = min(p - 1, f0)
-            raw = segment.read_samples_raw(
-                (f0 - hist_frames) * m, (hist_frames + t_k + h_k) * m)
+            with profiling.span("stream.read"):
+                raw = segment.read_samples_raw(
+                    (f0 - hist_frames) * m, (hist_frames + t_k + h_k) * m)
             hist = None
             if f0 > 0:
                 head = raw[: hist_frames * m]

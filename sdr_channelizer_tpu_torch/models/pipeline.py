@@ -25,6 +25,9 @@ Staged steps (the JAX package's ``jax.jit`` sites, ``_staging``): ``step``,
 ``extract_fused`` runs a staged ``forward_packed`` (``bit_width`` and
 ``route`` static).  ``forward*`` are the eager forms, and so is every call
 with ``plain=True``.  On the CPU a staged step calls its eager form.
+
+Spans (``utils.profiling``): each ``extract*`` call is a span
+``entry.<method>``, the root of the staged step's and finalize's spans.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from sdr_channelizer_tpu_torch.dsp.channelizer import (
 from sdr_channelizer_tpu_torch.dsp.pdw import PdwBatch
 from sdr_channelizer_tpu_torch.ops import cuda as kernels
 from sdr_channelizer_tpu_torch.ops.medians import median
+from sdr_channelizer_tpu_torch.utils import profiling
 
 ROUTES = ("auto", "cm2", "cm", "flat")
 # A/B knobs of the JAX package's cm2 tail (slot compaction, slot gating):
@@ -246,6 +250,7 @@ class ChannelizerPipeline:
             bin_offsets_hz=self.channelizer.center_frequencies(fs),
         )
 
+    @profiling.spanned("entry.extract_fused")
     def extract_fused(
         self,
         samples: np.ndarray,
@@ -282,6 +287,7 @@ class ChannelizerPipeline:
                             f"{samples.dtype}")
         return self._finalize(batch, fs, fc, sample_start_time)
 
+    @profiling.spanned("entry.extract_planes")
     def extract_planes(
         self,
         iq: np.ndarray,
@@ -297,6 +303,7 @@ class ChannelizerPipeline:
         _, _, _, batch = self.step_planes(xr, xi)
         return self._finalize(batch, fs, fc, sample_start_time)
 
+    @profiling.spanned("entry.extract")
     def extract(
         self,
         x,
@@ -395,6 +402,7 @@ class WidebandPdwPipeline:
         return nf, pdwmod._extract_wideband_blocked(
             mag, phase_deg, sat, cfg, nf, block_step=self._staged_block)
 
+    @profiling.spanned("entry.extract")
     def extract(
         self,
         x,
