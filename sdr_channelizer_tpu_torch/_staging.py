@@ -11,14 +11,21 @@ static arguments and the ``allow_tf32`` switch.
   fills the wrappers' caches: the channelizer's device weights, the noise
   floor kernel's per-device attributes), then captures ``fn`` into a graph
   with a memory pool of its own.
-* Every call copies the inputs in (a host array straight into its buffer:
-  one host-to-device copy), replays the graph and returns clones of the
-  outputs, ``PdwBatch`` fields included, so that each call's results are
-  its own, as ``jax.jit``'s are.
+* Every call copies the inputs in, replays the graph and returns clones
+  of the outputs, ``PdwBatch`` fields included, so that each call's
+  results are its own, as ``jax.jit``'s are.  A host source of at least
+  ``PINNED_MIN_BYTES`` is copied into page-locked memory on the host's
+  threads and from there to the device in one queued DMA
+  (:func:`_pinned_copy`), and the call goes on once the host has read the
+  source's last byte; a smaller one is copied straight into its buffer.
+  The replay and the clones are queued on the same stream after the
+  copies, so they wait for the data without a host sync.
 * On the card a call records the spans ``staged.capture`` (the eager
   run and the capture, a miss) or ``staged.copy_in`` (a hit, with the
-  counter ``staged.copy_in_bytes``), then ``staged.replay`` and
-  ``staged.clone`` (``utils.profiling``; nothing while spans are off).
+  counters ``staged.copy_in_bytes``, the bytes from the host, and
+  ``staged.copy_in_ring_bytes``, those that went through page-locked
+  memory), then ``staged.replay`` and ``staged.clone``
+  (``utils.profiling``; nothing while spans are off).
 * At most ``MAX_GRAPHS`` keys are kept, the least recently used dropped
   first: each graph's pool holds the step's peak memory.
 * A replay runs no Python, so the kernel wrappers' launch counts would
@@ -46,7 +53,7 @@ import inspect
 import threading
 import warnings
 import weakref
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +62,13 @@ from sdr_channelizer_tpu_torch._device import resolve_device
 from sdr_channelizer_tpu_torch.utils import profiling
 
 MAX_GRAPHS = 4
+# host sources of this many bytes or more reach the device through
+# page-locked memory: on an H100's host a 58.7 MB dwell then holds the host
+# 2.5-2.7 ms where a pageable copy held it 8.9-10.9, in memory or read from
+# a file's map, and a streamed block of 65,536 frames of 56 bands (14.7 MB)
+# 1.4 ms where it held it 3.1; smaller ones (a block's history, a floor)
+# keep the pageable copy
+PINNED_MIN_BYTES = 12 << 20
 
 _capturing = threading.local()   # .held: the capture's kept tensors
 
@@ -114,6 +128,24 @@ def _host_tensor(x: np.ndarray) -> torch.Tensor:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         return torch.from_numpy(x)
+
+
+def _pinned(shape: torch.Size, dtype: torch.dtype) -> torch.Tensor:
+    """A page-locked host tensor from torch's caching host allocator."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _pinned_copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy the host tensor ``src`` into the device tensor ``dst`` of its
+    shape and dtype: into a page-locked tensor first (torch's copy between
+    host tensors, on its intra-op threads and without the GIL), then one
+    DMA queued on the current stream.  Returns once the host has read
+    ``src``, the DMA still queued; the allocator hands the page-locked
+    block out again only after the event that the DMA recorded, and makes
+    a block at the first copy of its size (a capture's)."""
+    stage = _pinned(src.shape, src.dtype)
+    stage.copy_(src)
+    dst.copy_(stage, non_blocking=True)
 
 
 def _launch_counts() -> dict:
@@ -206,8 +238,12 @@ class Staged:
                 self.hits += 1
                 self._graphs.move_to_end(key)
                 with profiling.span("staged.copy_in"):
-                    profiling.count("staged.copy_in_bytes",
-                                    self._copy_in(entry.inputs, args))
+                    host_bytes, pinned_bytes = self._copy_in(entry.inputs,
+                                                             args)
+                    profiling.count("staged.copy_in_bytes", host_bytes)
+                    if pinned_bytes:
+                        profiling.count("staged.copy_in_ring_bytes",
+                                        pinned_bytes)
             with profiling.span("staged.replay"):
                 entry.graph.replay()
                 _add_launch_counts(entry.launches)
@@ -224,17 +260,26 @@ class Staged:
         return torch.empty_like(x, device=self.device)
 
     @staticmethod
-    def _copy_in(buffers: list, args) -> int:
-        """Copy ``args`` into ``buffers``; returns the bytes that came from
-        the host."""
-        host_bytes = 0
+    def _copy_in(buffers: list, args) -> Tuple[int, int]:
+        """Copy ``args`` into ``buffers``: a host source of at least
+        ``PINNED_MIN_BYTES`` through page-locked memory, any other straight
+        in.  Returns the bytes that came from the host and those of them
+        that went through page-locked memory."""
+        host_bytes = pinned_bytes = 0
         for buf, x in zip(buffers, args):
-            if buf is not None:
-                src = _host_tensor(x) if isinstance(x, np.ndarray) else x
+            if buf is None:
+                continue
+            src = _host_tensor(x) if isinstance(x, np.ndarray) else x
+            if src.is_cuda:
                 buf.copy_(src)
-                if not src.is_cuda:
-                    host_bytes += src.nbytes
-        return host_bytes
+                continue
+            host_bytes += src.nbytes
+            if src.nbytes >= PINNED_MIN_BYTES:
+                _pinned_copy(buf, src)
+                pinned_bytes += src.nbytes
+            else:
+                buf.copy_(src)
+        return host_bytes, pinned_bytes
 
     def _capture(self, fn: Callable, key: tuple, args, static) -> _Graph:
         inputs = [self._buffer(x) for x in args]

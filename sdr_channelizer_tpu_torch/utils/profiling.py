@@ -20,8 +20,10 @@ activities.  Where the spans sit:
 
 * ``entry.<method>``: the pipelines' ``extract*`` calls and the streamed
   path's ``extract_segment*``, the root of a capture;
-* ``staged.copy_in`` (counter ``staged.copy_in_bytes``, the bytes copied
-  from the host), ``staged.replay`` (the graph's launch), ``staged.clone``
+* ``staged.copy_in`` (counters ``staged.copy_in_bytes``, the bytes copied
+  from the host, and ``staged.copy_in_ring_bytes``, those of them that
+  went through page-locked memory, counted where there are any),
+  ``staged.replay`` (the graph's launch), ``staged.clone``
   (the outputs' copies) and ``staged.capture`` in ``_staging.Staged``;
 * ``finalize.wait`` (the step's tail, only while spans are on),
   ``finalize.d2h`` and ``finalize.host`` in ``dsp.pdw.finalize_pdws``;
