@@ -14,7 +14,7 @@ to one tap, ``sqrtf`` and ``atan2`` to an add, the ingest's global loads
 and the global writes behind a condition that is false at run time but
 unknown to the compiler), builds one library per variant, all at once, and
 times each through the package's wrapper at K1's main shape (cm2 form, M =
-64 x 262144 frames of the dense capture of ``chip_smoke.py``, packed int16)
+64 x 262144 frames of the benchmark's dense capture, packed int16)
 and at B6's streamed block shape (cm form, 65536 + 1024 frames with the
 history of the block before).  A reading is CUDA events around ``--loop``
 calls in a row, over the calls, so that the wrapper's host time hides
@@ -154,8 +154,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_channelizer: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    import torch_card_fixtures as cs
+    from sdr_channelizer_tpu_torch import bench
     from sdr_channelizer_tpu_torch.dsp.channelizer import Channelizer
     from sdr_channelizer_tpu_torch.ops.cuda import _build
     from sdr_channelizer_tpu_torch.ops.cuda import channelizer_kernel as ck
@@ -169,7 +170,7 @@ def main() -> int:
     taps_np = Channelizer.create(m).taps_rev.astype(np.float32)
     p = taps_np.shape[0]
     xq = torch.as_tensor(
-        cs.pack(cs.quantize(cs.make_capture(m * cs.FRAMES_MAIN, m, False))),
+        cs.pack(bench.quantize(bench.make_capture(m * cs.FRAMES_MAIN, m))),
         device=dev)
     f0, blk_len = cs.BLOCK_FRAMES, cs.BLOCK_FRAMES + cs.HALO_FRAMES
     shapes = {

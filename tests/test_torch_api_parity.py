@@ -7,8 +7,9 @@ method, and every parameter of each under the same name and default.  The
 differences allowed are the entries of ``ALLOWED``, each with its reason.
 Both command lines have the same subcommands, options and defaults, the
 port's ``--device`` added; each ``pl.pallas_call`` site of the JAX package
-is named by a kernel row of ``chip_smoke.py`` and by a row of ``PERF.md``
-section 6.
+is a key of ``KERNEL_SITES`` in ``tests/test_torch_card_kernels.py``, whose
+value names the card case there that holds its CUDA kernel, and is named by
+a row of ``PERF.md`` section 6.
 
 Part two makes the calls: ``tests/test_channelizer.py``'s call forms
 (``chan(x)``, ``shift``, truncation, the tone in its channel) and batched
@@ -269,15 +270,32 @@ def _pallas_call_sites() -> list:
     return sites
 
 
+def _card_kernel_sites():
+    """``KERNEL_SITES`` of the card's kernel tests, read from the source,
+    and the names of the test functions beside it."""
+    tree = ast.parse((REPO / "tests/test_torch_card_kernels.py").read_text())
+    sites = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and [ast.unparse(t) for t in node.targets] == ["KERNEL_SITES"])
+    tests = {node.name for node in tree.body
+             if isinstance(node, ast.FunctionDef)
+             and node.name.startswith("test_")}
+    return sites, tests
+
+
 def test_every_pallas_call_has_its_chip_row_and_its_perf_row():
+    """Each site is a key of ``KERNEL_SITES`` naming a card case of
+    ``tests/test_torch_card_kernels.py``, and a row of PERF.md section 6
+    names it."""
     sites = _pallas_call_sites()
     assert len(sites) == 9, sites
-    smoke = (REPO / "chip_smoke.py").read_text()
+    card_sites, card_tests = _card_kernel_sites()
     perf = (REPO / "PERF.md").read_text()
     findings = perf[perf.index("## 6. Findings"):perf.index("## 7.")]
     rows = [line for line in findings.splitlines() if line.startswith("| ")]
     for site in sites:
-        assert f'"{site}"' in smoke, f"no chip_smoke.py kernel row replaces {site}"
+        assert card_sites.get(site) in card_tests, \
+            f"no card case of KERNEL_SITES holds {site}"
         assert any(f"`{site}`" in row for row in rows), \
             f"no row of PERF.md section 6 names {site}"
 

@@ -29,6 +29,8 @@ from sdr_channelizer_tpu.models.pipeline import (
 from sdr_channelizer_tpu.ops import medians as jmedians
 from sdr_channelizer_tpu_torch import bench, bench_scaling
 
+import torch_card_fixtures
+
 # the CLI modules (each package's ``cli`` exports the function ``main``)
 jcli = importlib.import_module("sdr_channelizer_tpu.cli.main")
 tcli = importlib.import_module("sdr_channelizer_tpu_torch.cli.main")
@@ -139,8 +141,9 @@ def test_sparse_pulses_are_the_jax_cm2_routes(headline, jax_counts):
 def test_dense_pulses_within_the_smokes_band(headline, jax_counts):
     """The dense capture's 1-2 sample pulses hover at the threshold, where
     the two packages' float sums in another order may tip a sample: the
-    count is held to chip_smoke.py's band, 2 %."""
-    band = _load("chip_smoke").DENSE_COUNT_BAND
+    count is held to the card tests' band, ``DENSE_COUNT_BAND`` of
+    ``tests/torch_card_fixtures.py``, 2 %."""
+    band = torch_card_fixtures.DENSE_COUNT_BAND
     got = headline[0][0]["dense_pulses_per_step"]
     assert abs(got - jax_counts["dense"]) <= band * jax_counts["dense"]
     assert got > jax_counts["sparse"]
@@ -268,7 +271,9 @@ def test_cli_reads_bench_flags_after_dashdash(monkeypatch, cli):
 
 
 def test_port_sources_import_no_root_script():
-    pat = re.compile(r"^\s*(import|from)\s+(bench|bench_scaling|chip_smoke)"
+    """No module of the port imports the root scripts ``bench.py`` or
+    ``bench_scaling.py``: the port's harness is its own."""
+    pat = re.compile(r"^\s*(import|from)\s+(bench|bench_scaling)"
                      r"(\.|\s|$)", re.M)
     port = os.path.join(REPO, "sdr_channelizer_tpu_torch")
     sources = [os.path.join(root, f) for root, _, files in os.walk(port)

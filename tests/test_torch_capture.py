@@ -180,7 +180,8 @@ def test_tracker_drops_errored_dwells_as_jax_does():
 def test_device_emitter_matches_radio_physics():
     """The device emitter reproduces the radio's signal model (duty cycle,
     amplitude, scan envelope), its timed dwells, and drives the tracker
-    closed loop; here on the CPU, on the card in ``chip_smoke.py``."""
+    closed loop; here on the CPU, on the card in
+    ``tests/test_torch_card_wideband.py::test_track``."""
     kw = {**SCENE, "tone_offset_hz": 0.13e6}
     dev = DeviceDwellEmitter(**kw, device="cpu")
     host = EmulatedRadio(**kw)

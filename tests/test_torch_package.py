@@ -26,7 +26,10 @@ PORT = os.path.join(REPO, "sdr_channelizer_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    tests = os.path.join(REPO, "tests")
+    out = [os.path.join(tests, f) for f in sorted(os.listdir(tests))
+           if f.startswith("test_torch_card_") and f.endswith(".py")]
+    out.append(os.path.join(tests, "torch_card_fixtures.py"))
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return out
@@ -69,6 +72,8 @@ def test_fresh_interpreter_imports_no_jax():
 
 
 def test_sources_name_neither_jax_nor_the_jax_package():
+    """The port's modules, the card tests and their fixtures import neither
+    JAX nor the JAX package: the card's machine has no JAX."""
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|sdr_channelizer_tpu)(\.|\s|$)", re.M)
     sources = _port_sources()

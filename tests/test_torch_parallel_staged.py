@@ -21,8 +21,9 @@ a graph:
   tail stage's +inf latch by a row tensor (and by the host row of the
   eager form) against the row's own latch.
 
-The graphs themselves are held on the card by ``chip_smoke.py``'s phases
-``sharded`` and ``cards``.
+The graphs themselves are held on the card by
+``tests/test_torch_card_sharded.py`` (its multi-card cases on a machine
+with several cards).
 
 Run alone: ``JAX_PLATFORMS=cpu python -m pytest
 tests/test_torch_parallel_staged.py -q -p no:cacheprovider``.

@@ -11,8 +11,9 @@ block's stretch read twice with its lower middle's 12-bit bin compacted
 into shared memory or, where it does not fit, into the block's scratch.
 The constants are read from the source, so the model cannot drift from it.
 
-The kernels themselves run only on the card, where ``chip_smoke.py`` holds
-them to the plain versions on the same kind of runs.
+The kernels themselves run only on the card, where
+``tests/test_torch_card_kernels.py`` holds them to the plain versions on
+the same kind of runs.
 """
 
 import os

@@ -25,7 +25,8 @@ DFT_RTOL, DFT_ATOL = 2e-4, 1e-4  # tests/test_spectrogram.py:71
 # relative between XLA's and torch's float32 FFTs and products (each sums
 # in its own order, and |X|^2 of a small bin keeps little relative
 # accuracy); those comparisons hold every bin within 1e-5 of the largest
-# power, the bar chip_smoke.py holds the card's mesh to.
+# power, the bar the card test holds the card's mesh to (SPEC_TOL of
+# tests/torch_card_fixtures.py).
 MESH_TOL = 1e-5
 
 

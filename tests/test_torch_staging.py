@@ -4,8 +4,8 @@ the steps that the JAX package compiles (``step_fused``, the wideband
 step, the tracker's dwell) are held here against the JAX package's jitted
 ones on the same NumPy inputs; then the staging module's own rules (the
 key, the clones, no cache on the CPU, no card and no fallback).  The CUDA
-graphs themselves are held on the card by ``chip_smoke.py``'s phase
-``staged``.
+graphs themselves are held on the card by
+``tests/test_torch_card_paths.py::test_staged_steps``.
 
 Run alone: ``JAX_PLATFORMS=cpu python -m pytest tests/test_torch_staging.py
 -q -p no:cacheprovider``.

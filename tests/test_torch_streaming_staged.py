@@ -14,8 +14,9 @@ eager form, so these tests hold what does not need a graph:
 * the keys a 16-block segment makes per staged function, within
   ``_staging.MAX_GRAPHS``.
 
-The graphs themselves are held on the card by ``chip_smoke.py``'s phases
-``streaming`` and ``wideband``.
+The graphs themselves are held on the card by
+``tests/test_torch_card_streaming.py`` and
+``tests/test_torch_card_wideband.py``.
 
 Run alone: ``JAX_PLATFORMS=cpu python -m pytest
 tests/test_torch_streaming_staged.py -q -p no:cacheprovider``.
