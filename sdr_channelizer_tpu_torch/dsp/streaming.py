@@ -30,11 +30,14 @@ block extractor; they also run wideband (``channelizer=None``).
 
 Staged steps (the JAX package's ``jax.jit`` sites, ``_staging``): on the
 card the fused block step (the packed channelization, the kernel tail and
-the block's latch transfer), the floor pass's block channelization, the
-floor's count passes and the oracle block step run as CUDA graphs captured
-once a key.  The latch entry is chained on the device; a block's transfer
-comes to the host only where a checkpoint is written.  ``plain=True`` runs
-every step eagerly.
+the block's latch transfer), the floor pass's block channelization and the
+oracle block step run as CUDA graphs captured once a key.  The exact floor
+of ``extract_segment_fused`` is one launch of K2 (``ops.noise_floor``)
+over the segment's channel-major magnitudes gathered on the device (a
+launch a group of channels where the card's memory is short).  The
+latch entry is chained on the device; a block's transfer comes to the host
+only where a checkpoint is written.  ``plain=True`` runs every step
+eagerly, and the floor as the JAX package's radix descent of count passes.
 
 Spans (``utils.profiling``): ``entry.extract_segment[_fused]`` around a
 segment, ``stream.read`` around each block's read from the files,
@@ -44,9 +47,10 @@ batch brought to the host.
 
 Noise floors: the reference uses the median over the *whole* capture, which
 no single streaming pass can produce.  ``noise_floor="two_pass"`` (default)
-measures exact floors with streamed counting passes and then detects;
-``"first_block"`` (``extract`` only) estimates from the first block; or pass
-precomputed per-channel floors.
+measures exact floors in a pass of their own (on the card over the
+magnitudes gathered on the device, else by streamed counting passes) and then
+detects; ``"first_block"`` (``extract`` only) estimates from the first
+block; or pass precomputed per-channel floors.
 """
 
 from __future__ import annotations
@@ -96,10 +100,10 @@ def _u32_to_f32_np(u: np.ndarray) -> np.ndarray:
 def _nf_count_le(mag: torch.Tensor, prefix: torch.Tensor,
                  shift: torch.Tensor) -> torch.Tensor:
     """Per-channel ``count(key <= cut)`` for the 15 cut points of one 4-bit
-    radix level.  ``mag`` is a device-resident (T, M) block, ``prefix`` the
-    (M,) key prefixes found so far (int64 holding u32), ``shift`` the level's
-    bit shift as a 0-d int64 tensor (so that one staged graph a block shape
-    serves every level); returns (M, 15) int64 counts."""
+    radix level.  ``mag`` is a device-resident (T, M) block (a view of a
+    channel-major one), ``prefix`` the (M,) key prefixes found so far (int64
+    holding u32), ``shift`` the level's bit shift as a 0-d int64 tensor;
+    returns (M, 15) int64 counts."""
     keys = medians.sortable_u32(mag)  # (T, M)
     j = torch.arange(1, 16, dtype=torch.int64, device=mag.device)
     cuts = (prefix[:, None] | (j[None, :] << shift)) - 1
@@ -269,10 +273,9 @@ class StreamingExtractor:
     device: Optional[Union[str, torch.device]] = None
     plain: bool = False
 
-    # Device-resident magnitude budget of the counts-only noise floor
-    # (bytes).  Streams beyond it take the host-histogram form, which is
-    # exact too but fetches every block's magnitudes.
-    _NF_RESIDENT_CAP_BYTES = 2 << 30
+    # Device memory the exact floor leaves beside the magnitudes it holds
+    # (bytes): the block steps' working sets and the allocator's slack.
+    _NF_HEADROOM_BYTES = 1 << 30
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -280,15 +283,14 @@ class StreamingExtractor:
             # full-float32 products on the whole path
             torch.backends.cuda.matmul.allow_tf32 = False
         self._ops = kernels.PLAIN if self.plain else kernels.KERNELS
-        # the JAX package's jax.jit sites (streaming.py:67, :84, :261 and
-        # the fused block step); ``_eager`` runs their eager forms instead
+        # the JAX package's jax.jit sites (streaming.py:261 and the fused
+        # block step; its count passes, :67 and :84, run eagerly on the plain
+        # route only); ``_eager`` runs their eager forms instead
         self._eager = self.plain
         self._staged_fused_block = Staged(
             self._fused_block, self.device, ("own_len", "bit_width"))
         self._staged_floor_block = Staged(self._floor_block, self.device,
                                           ("bit_width",))
-        self._staged_nf_count_le = Staged(_nf_count_le, self.device)
-        self._staged_nf_finish = Staged(_nf_finish, self.device)
         self._staged_detect_block = Staged(self._detect_block, self.device,
                                            ("own_len",))
         self._halo = self.halo_frames or self.pdw_cfg.max_pulse_samples
@@ -365,8 +367,9 @@ class StreamingExtractor:
             sat_level=self.pdw_cfg.saturation_level, history=hist)
 
     def _floor_block(self, hist, xq, *, bit_width: int):
-        """The floor pass's block: its (T, M) magnitude."""
-        return self._block_streams(hist, xq, bit_width)[0]
+        """The floor pass's block: its channel-major (M, T) magnitude, the
+        channelizer's ``mag_cm`` (the bits of the time-major ``mag``)."""
+        return self._block_streams(hist, xq, bit_width)[1]
 
     def _fused_block(self, hist, xq, nf, entry, *, own_len: int,
                      bit_width: int):
@@ -458,59 +461,114 @@ class StreamingExtractor:
                 vals[c, j] = _u32_to_f32_np(np.uint32((b << 16) | low))[0]
         return np.float32(0.5) * (vals[:, 0] + vals[:, 1])
 
-    def _noise_floor_device(self, make_mag_blocks_dev,
-                            est_bytes: Optional[int] = None
-                            ) -> Optional[np.ndarray]:
-        """Exact per-channel median with the count reductions on the device.
+    def _nf_budget_bytes(self, need: int) -> int:
+        """Bytes of the device's memory the exact floor may hold, found out
+        as far as ``need`` asks: the allocator's unused cache where that
+        holds ``need`` (no ``mem_get_info`` query: from a stream's second
+        segment on, the first one's floor left it there), else that and
+        what the device has free, less ``_NF_HEADROOM_BYTES``; host memory
+        for a CPU device."""
+        if self.device.type != "cuda":
+            free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+            return free - self._NF_HEADROOM_BYTES
+        stats = torch.cuda.memory_stats(self.device)
+        cached = (stats.get("reserved_bytes.all.current", 0)
+                  - stats.get("allocated_bytes.all.current", 0))
+        if cached >= need:
+            return cached
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free + cached - self._NF_HEADROOM_BYTES
 
-        The magnitudes stay resident on the device and a 4-bit radix descent
-        over the key space runs over them: 8 counting levels and one finish
-        pass, each fetching only per-channel count vectors (int64 counts, so
-        no 2^24 bound).  Identical order statistics and mean of the two
-        middles as the host-histogram form.
+    def _noise_floor_device(self, make_mag_blocks_dev, m: int,
+                            n_frames: int) -> np.ndarray:
+        """Exact per-channel median of the stream's channel-major (M, t)
+        magnitude blocks, ``n_frames`` in all, with the selection on the
+        device.
 
-        Returns None when the stream exceeds the residency budget (the
-        caller then takes the host-histogram form).  Pass ``est_bytes``
-        (total float32 magnitude bytes, known from the segment's shape) so
-        that a stream over budget declines before any device work.
+        The kernel route (``self._ops is kernels.KERNELS``, the default)
+        copies the blocks in time order into one (M, n_frames) buffer and
+        runs K2 (``ops.noise_floor``) over it once; the (M,) floor is the
+        one transfer to the host.  Where the buffer and K2's candidates (a
+        quarter of it) exceed :meth:`_nf_budget_bytes`, the channels go in
+        groups that fit, one pass over the blocks and one K2 launch a
+        group.  Where not one channel fits, or a channel holds more frames
+        than K2 takes (2^31), the floor is the descent below over blocks
+        made anew for each of its passes.
+
+        The plain route (``plain=True``) is the JAX package's: a 4-bit radix
+        descent over the order-preserving keys of the blocks, held on the
+        device where they fit the budget: 8 count levels and one finish
+        pass, each fetching per-channel count vectors (int64 counts, so no
+        2^24 bound; counter ``nf_device_count_d2h_bytes`` of the
+        extractor's ``counters``).
+
+        Both give the mean of the order statistics of rank
+        ``(n_frames - 1) // 2`` and ``n_frames // 2``, NaNs sorting high, as
+        the host-histogram form does; but at an even ``n_frames`` with a NaN
+        above the lower middle the descent's finish pass (``amin``, as the
+        JAX package's ``jnp.min``) reads NaN where the others read the upper
+        middle.
         """
-        if est_bytes is not None and est_bytes > self._NF_RESIDENT_CAP_BYTES:
-            return None
-        mags = []
-        total_bytes = 0
-        for b in make_mag_blocks_dev():
-            total_bytes += b.numel() * 4
-            if total_bytes > self._NF_RESIDENT_CAP_BYTES:
-                return None
-            mags.append(b)
-        if not mags:
+        if not n_frames:
             raise ValueError("empty sample stream: no samples to measure")
-        n_total = sum(int(b.shape[0]) for b in mags)
-        m = int(mags[0].shape[1])
-        dev = mags[0].device
-        k_lo, k_hi = max((n_total - 1) // 2, 0), n_total // 2
+        if self._ops is kernels.PLAIN:
+            need = 4 * m * n_frames
+            return self._noise_floor_descent(
+                make_mag_blocks_dev, m, n_frames,
+                resident=need <= self._nf_budget_bytes(need))
+        budget = self._nf_budget_bytes(5 * m * n_frames)
+        rows = min(m, budget // (5 * n_frames)) if n_frames < 1 << 31 else 0
+        if rows < 1:
+            return self._noise_floor_descent(make_mag_blocks_dev, m,
+                                             n_frames, resident=False)
+        floors = []
+        for c0 in range(0, m, rows):
+            buf = torch.empty((min(rows, m - c0), n_frames),
+                              dtype=torch.float32, device=self.device)
+            f = 0
+            for b in make_mag_blocks_dev():
+                buf[:, f:f + b.shape[1]] = b[c0:c0 + buf.shape[0]]
+                f += b.shape[1]
+            if f != n_frames:
+                raise ValueError(f"the blocks hold {f} frames, not "
+                                 f"{n_frames}")
+            floors.append(self._ops.noise_floor(buf, n_frames))
+            del buf  # the next group reuses its memory
+        return torch.cat(floors).cpu().numpy()
 
+    def _noise_floor_descent(self, make_mag_blocks_dev, m: int,
+                             n_frames: int, *, resident: bool) -> np.ndarray:
+        """The radix descent of :meth:`_noise_floor_device`: eager count
+        passes over the blocks' time-major views, the blocks made once and
+        held on the device (``resident``) or made anew for each of the nine
+        passes."""
+        held = [b.T for b in make_mag_blocks_dev()] if resident else None
+
+        def mag_blocks():
+            return held if resident else (b.T for b in make_mag_blocks_dev())
+
+        dev = self.device
+        k_lo, k_hi = (n_frames - 1) // 2, n_frames // 2
         prefix = np.zeros(m, np.uint32)
         d2h = 0
 
         def pref_dev():
             return torch.as_tensor(prefix.astype(np.int64), device=dev)
 
-        count_le = self._step("nf_count_le")
         for level in range(8):
             shift = 28 - 4 * level
             pd = pref_dev()
             sd = torch.tensor(shift, dtype=torch.int64, device=dev)
             # sum every block's counts on the device, fetch once per level
-            tot = sum(count_le(b, pd, sd) for b in mags).cpu().numpy()
+            tot = sum(_nf_count_le(b, pd, sd)
+                      for b in mag_blocks()).cpu().numpy()
             d2h += tot.nbytes
             nib = np.sum(tot <= k_lo, axis=1).astype(np.uint32)
             prefix |= nib << np.uint32(shift)
         lo = _u32_to_f32_np(prefix)
 
         pd = pref_dev()
-        finish = self._step("nf_finish")
-        outs = [finish(b, pd) for b in mags]
+        outs = [_nf_finish(b, pd) for b in mag_blocks()]
         cnt_le = sum(c for c, _ in outs).cpu().numpy()
         mins = torch.stack([mn for _, mn in outs]).amin(dim=0).cpu().numpy()
         d2h += cnt_le.nbytes + mins.nbytes
@@ -776,10 +834,11 @@ class StreamingExtractor:
         place).  Checkpoints are one ``.npz`` per block, in a directory of
         their own (those of :meth:`extract_segment` hold other values).
 
-        On a CUDA device the two-pass noise floor keeps the blocks'
-        magnitudes on the device and fetches counts only; past the residency
-        budget, and on the CPU, it takes the host-histogram form.  Both are
-        exact.
+        On a CUDA device the two-pass noise floor gathers the blocks'
+        channel-major magnitudes on the device and selects over them there
+        (:meth:`_noise_floor_device`, in groups of channels where the card's
+        memory is short); on the CPU it takes the host-histogram form.  Both
+        are exact.
         """
         if self.channelizer is None:
             raise ValueError("extract_segment_fused requires a channelizer "
@@ -831,14 +890,10 @@ class StreamingExtractor:
                                   bit_width=bit_width)
 
         def measure():
-            nf_arr = None
             if self.device.type == "cuda":
-                nf_arr = self._noise_floor_device(
-                    dev_mag_blocks, est_bytes=n_frames * m * 4)
-            if nf_arr is None:
-                nf_arr = self._noise_floor_from_mag_blocks(
-                    lambda: (b.cpu().numpy() for b in dev_mag_blocks()))
-            return nf_arr
+                return self._noise_floor_device(dev_mag_blocks, m, n_frames)
+            return self._noise_floor_from_mag_blocks(
+                lambda: (b.cpu().numpy().T for b in dev_mag_blocks()))
 
         nf = self._segment_noise_floor(noise_floor, ck, measure)
 

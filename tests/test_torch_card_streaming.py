@@ -3,10 +3,10 @@ times over as four contiguous ``.iq`` files (67,108,864 samples, 16 blocks
 of 65,536 frames) through ``extract_segment_fused``, held against
 single-shot extraction of the same samples, its plain run and its own
 resume; its staged steps (a CUDA graph a key) against the eager run in
-turns, bit for bit; the floor's count passes alone, staged and eager; the
-oracle forms ``extract_segment`` / ``extract`` staged and eager on one
-file; and the dense capture as one file, where the slot grid with the
-mask is what runs.
+turns, bit for bit; the floor alone, K2's one select against the plain
+route's count descent; the oracle forms ``extract_segment`` /
+``extract`` staged and eager on one file; and the dense capture as one
+file, where the slot grid with the mask is what runs.
 
 Marked ``card``: skipped without a CUDA card.  No JAX in this file:
 
@@ -32,8 +32,9 @@ STREAM_COUNTS = {
     "channelize_streams_packed_cm": "channelizer_kernel.launches_cm",
     "latch_cumsums": "latch_kernel.launches_tm",
     "pulse_stats_sat": "pulse_stats_kernel.launches",
-    "pulse_stats_dense": "pulse_stats_kernel.launches_dense"}
-STREAM_STEPS = ("fused_block", "floor_block", "nf_count_le", "nf_finish")
+    "pulse_stats_dense": "pulse_stats_kernel.launches_dense",
+    "noise_floor_cm": "nf_kernel.launches"}
+STREAM_STEPS = ("fused_block", "floor_block")
 T0 = 1723800000.0
 
 
@@ -61,13 +62,14 @@ def extractor(pipe, cfg=None, **kw):
 def test_four_files(pipe, caps, tmp_path):
     """The four files through the staged extractor with a checkpoint: each
     key captured once, every later block a replay; B6 on both passes of
-    every block, B7 and the statistics on the detect pass; the floor from
-    the device counts.  Held against single-shot extraction of the same
-    samples (four times the slots), whose K2 floor it equals; resumed
+    every block, B7 and the statistics on the detect pass; the floor one
+    K2 launch over the resident channel-major magnitudes.  Held against
+    single-shot extraction of the same samples (four times the slots),
+    whose K2 floor it equals; resumed
     after losing the last two blocks; the plain run; the eager run in turns
     with the staged one, without a checkpoint, bit for bit, no key captured
-    again.  Then the floor's count passes alone, staged and eager, and the
-    oracle forms on one file."""
+    again, one K2 launch a measured floor.  Then the floor alone on both
+    routes, and the oracle forms on one file."""
     from sdr_channelizer_tpu_torch.config import PdwConfig
     from sdr_channelizer_tpu_torch.dsp.streaming import CaptureSet
     from sdr_channelizer_tpu_torch.models import ChannelizerPipeline
@@ -91,12 +93,9 @@ def test_four_files(pipe, caps, tmp_path):
     launches = read_counts(STREAM_COUNTS)
     # (f) every step staged: the keys are the first block (no history),
     # the middle ones and the last (no halo); the floor pass's first
-    # and the rest; one a count pass.  Each key captured once, every
-    # later block a replay
-    keys = {"fused_block": 3, "floor_block": 2, "nf_count_le": 1,
-            "nf_finish": 1}
-    calls = {"fused_block": n_blocks, "floor_block": n_blocks,
-             "nf_count_le": 8 * n_blocks, "nf_finish": n_blocks}
+    # and the rest.  Each key captured once, every later block a replay
+    keys = {"fused_block": 3, "floor_block": 2}
+    calls = {"fused_block": n_blocks, "floor_block": n_blocks}
     cache = staged_counts(ext)
     check(cache == {n: (calls[n] - keys[n], keys[n], keys[n])
                     for n in keys},
@@ -109,8 +108,9 @@ def test_four_files(pipe, caps, tmp_path):
           and launches["latch_cumsums"] == n_blocks + keys["fused_block"]
           and launches["pulse_stats_dense"] >= n_blocks,
           f"streaming: launch counts {launches} for {n_blocks} blocks")
-    check(ext.counters.get("nf_device_count_d2h_bytes") > 0,
-          "streaming: the noise floor did not take the device counts")
+    check(launches["noise_floor_cm"] == 1,
+          f"streaming: {launches['noise_floor_cm']} K2 launches for one "
+          f"measured floor")
     check(len(got["toa"]) > 0, "streaming: no pulses")
 
     # (a) single-shot extraction of the same samples; its slot cap is
@@ -161,10 +161,13 @@ def test_four_files(pipe, caps, tmp_path):
     # checkpoint: bit for bit, and no key captured again
     eager = extractor(pipe)
     eager._eager = True
+    reset_counts(STREAM_COUNTS)
     in_turns(lambda: eager.extract_segment_fused(seg),
              lambda: ext.extract_segment_fused(seg),
              lambda res, which: pdws_identical(
                  res, got, f"streaming, {which} run vs the first"))
+    n_k2 = read_counts(STREAM_COUNTS)["noise_floor_cm"]
+    check(n_k2 == 4, f"streaming: {n_k2} K2 launches for four floors")
     check(all(s.misses == 0 and len(s) == 0 for s in
               (getattr(eager, f"_staged_{n}") for n in STREAM_STEPS)),
           "streaming: the eager run went through a staged step")
@@ -173,42 +176,64 @@ def test_four_files(pipe, caps, tmp_path):
                     for n in keys},
           f"streaming: a staged key captured again: {after}")
     del plain, resumed, eager
-    floor_pass_in_turns(ext, seg)
+    floor_pass_in_turns(pipe, ext, seg, nf_s)
     oracle_in_turns(pipe, caps, fs, tmp_path)
 
 
-def floor_pass_in_turns(ext, seg) -> None:
-    """The streamed floor's count passes alone, over the block magnitudes
-    of one more staged run of ``ext`` on ``seg``, resident on the card:
-    staged (``ext``'s graphs, already captured) and eager in turns, the
-    same floor, no key captured again."""
+def floor_pass_in_turns(pipe, ext, seg, nf_ref) -> None:
+    """The streamed floor alone, over the channel-major block magnitudes of
+    one more staged run of ``ext`` on ``seg``, resident on the card: the
+    kernel route (one K2 launch; with the budget cut to 24 channels, one a
+    group of them; with it cut below one channel, the count descent over
+    the blocks made anew) and the plain route's count descent in turns,
+    bit for bit, each the single-shot floor ``nf_ref``."""
     mags = []
     measure = ext._noise_floor_device
+    shapes = []
 
-    def keep(make_mag_blocks_dev, est_bytes=None):
+    def keep(make_mag_blocks_dev, m, n_frames):
         mags.extend(make_mag_blocks_dev())
-        return measure(lambda: iter(mags), est_bytes)
+        shapes.append((m, n_frames))
+        return measure(lambda: iter(mags), m, n_frames)
 
     ext._noise_floor_device = keep
     try:
         ext.extract_segment_fused(seg)
     finally:
         del ext._noise_floor_device
-    before = staged_counts(ext)
+    m, n_frames = shapes[0]
+    check(m == M_MAIN and sum(b.shape[1] for b in mags) == n_frames
+          and all(b.shape[0] == M_MAIN and b.is_contiguous() for b in mags),
+          "streaming floor pass: the blocks are not (M, t) channel-major")
+    total = torch.cuda.get_device_properties(DEVICE).total_memory
+    check(ext._nf_budget_bytes(1) >= 1
+          and 0 < ext._nf_budget_bytes(1 << 50) < total,
+          "streaming floor pass: the budget is not the card's memory")
+    plain = extractor(pipe, plain=True)
+    reset_counts(STREAM_COUNTS)
     floors = []
 
-    def floor(eager: bool):
-        ext._eager = eager
-        return ext._noise_floor_device(lambda: iter(mags))
+    def kernel_route():
+        for rows in (None, 24, 0):
+            if rows is not None:
+                ext._nf_budget_bytes = lambda need: rows * n_frames * 5
+            try:
+                floors.append(ext._noise_floor_device(
+                    lambda: iter(mags), m, n_frames))
+            finally:
+                ext.__dict__.pop("_nf_budget_bytes", None)
+        return floors[-1]
 
-    in_turns(lambda: floor(True), lambda: floor(False),
-             lambda nf, which: floors.append(nf))
-    ext._eager = False
-    check(all(np.array_equal(f, floors[0]) for f in floors),
-          "streaming floor pass: staged and eager floors differ")
-    after = staged_counts(ext)
-    check(all(after[n][1:] == before[n][1:] for n in after),
-          f"streaming floor pass: a key captured again: {after}")
+    in_turns(lambda: plain._noise_floor_device(lambda: iter(mags), m,
+                                               n_frames),
+             kernel_route, lambda nf, which: floors.append(nf))
+    n_k2 = read_counts(STREAM_COUNTS)["noise_floor_cm"]
+    check(n_k2 == 2 * (1 + 3),
+          f"streaming floor pass: {n_k2} K2 launches, not 8")
+    check(all(np.array_equal(f.view(np.uint32), nf_ref.view(np.uint32))
+              for f in floors),
+          "streaming floor pass: a route's floor differs from the "
+          "single-shot one")
 
 
 def oracle_in_turns(pipe, caps, fs: float, tmp_path) -> None:

@@ -422,38 +422,171 @@ def test_measure_noise_floor_is_the_exact_median(segment, magnitudes,
         got, np.median(magnitudes[:n_frames], axis=0).astype(np.float32))
 
 
+def _cm_blocks(y, size):
+    """A factory of the channel-major (M, t) blocks of the (T, M) ``y``, in
+    time order, ``size`` frames each (the last ragged)."""
+    return lambda: (torch.from_numpy(np.ascontiguousarray(y[k:k + size].T))
+                    for k in range(0, len(y), size))
+
+
 @pytest.mark.parametrize("n_frames", [1536, 1535], ids=["even", "odd"])
 def test_noise_floor_device_is_the_exact_median(magnitudes, n_frames):
+    """Both routes over the capture's magnitudes as channel-major blocks:
+    the kernel route's one select and the plain route's count descent."""
     y = magnitudes[:n_frames]
-    ext = _extractor()
-    got = ext._noise_floor_device(
-        lambda: (torch.from_numpy(y[k:k + 500]) for k in range(0, len(y), 500)))
-    assert got.dtype == np.float32
-    np.testing.assert_array_equal(got, np.median(y, axis=0).astype(np.float32))
-    assert ext.counters.get("nf_device_count_d2h_bytes") > 0
+    ref = np.median(y, axis=0).astype(np.float32)
+    plain = _extractor(plain=True)
+    for ext in (_extractor(), plain):
+        got = ext._noise_floor_device(_cm_blocks(y, 500), M, n_frames)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, ref)
+    assert plain.counters.get("nf_device_count_d2h_bytes") > 0
 
 
 def test_noise_floor_device_with_ties_and_negative_zero():
     """Counts are integers: many equal values, and both zeros, pick the
-    middle order statistics all the same."""
+    middle order statistics all the same, on either route."""
     rng = np.random.default_rng(3)
     y = np.round(np.abs(rng.standard_normal((401, 3))) * 4).astype(np.float32) / 4
     y[::7, 1] = -0.0
-    got = _extractor()._noise_floor_device(
-        lambda: iter([torch.from_numpy(y[:100]), torch.from_numpy(y[100:])]))
+    for ext in (_extractor(), _extractor(plain=True)):
+        got = ext._noise_floor_device(_cm_blocks(y, 100), 3, 401)
+        np.testing.assert_array_equal(got, np.median(y, axis=0))
+
+
+def _crafted_magnitudes(n):
+    """(n, 7) float32 whose columns' middles are awkward: noise; ties (the
+    middle inside a run of equal values); both zeros (even ``n``: -0 and +0
+    are the two middles, odd: -0 alone is the middle); +inf above the
+    middle; +inf over it; NaN above the middle; NaN over it.  Each column
+    shuffled."""
+    rng = np.random.default_rng(11)
+    k = n // 2
+    y = rng.random((n, 7), dtype=np.float32) + np.float32(0.5)
+    y[:, 1] = np.round(y[:, 1] * 4) / 4
+    zeros = [-0.0, 0.0] if n % 2 == 0 else [-0.0]
+    below = k - 1 + n % 2
+    y[:, 2] = np.concatenate([-y[:below, 2], zeros,
+                              y[below + len(zeros):, 2]])
+    y[: n // 3, 3] = np.inf
+    y[: 3 * n // 5, 4] = np.inf
+    y[: n // 3, 5] = np.nan
+    y[: 3 * n // 5, 6] = np.nan
+    for c in range(7):
+        y[:, c] = rng.permutation(y[:, c])
+    return y
+
+
+def _nf_host(y):
+    """The host-histogram form's floor of the (T, M) ``y``."""
+    return _extractor()._noise_floor_from_mag_blocks(lambda: iter([y]))
+
+
+@pytest.mark.parametrize("n_frames", [1000, 999], ids=["even", "odd"])
+def test_kernel_floor_is_the_count_descent_bit_for_bit(n_frames):
+    """The kernel route's one select over ragged channel-major blocks gives
+    the sort median (NaNs sorting high) and the plain route's count descent
+    bit for bit; ``np.median`` on the columns without NaN.
+
+    One corner differs, where no integer recording goes: at an even total
+    with a NaN above the lower middle, the descent's finish pass takes the
+    least value above it with ``amin``, which propagates the NaN (as the
+    JAX package's ``jnp.min`` does), while the select, the host-histogram
+    form and the single-shot floor read the upper middle."""
+    y = _crafted_magnitudes(n_frames)
+    blocks = _cm_blocks(y, 384)
+    got = _extractor()._noise_floor_device(blocks, 7, n_frames)
+    descent = _extractor(plain=True)._noise_floor_device(blocks, 7, n_frames)
+    s = np.sort(y, axis=0)
+    ref = np.float32(0.5) * (s[(n_frames - 1) // 2] + s[n_frames // 2])
+    assert got.dtype == np.float32 and got.shape == (7,)
+    np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+    np.testing.assert_array_equal(
+        got.view(np.uint32), _nf_host(y).view(np.uint32))
+    same = np.arange(7) != (5 if n_frames % 2 == 0 else -1)
+    np.testing.assert_array_equal(got[same].view(np.uint32),
+                                  descent[same].view(np.uint32))
+    assert n_frames % 2 == 1 or np.isnan(descent[5])
+    np.testing.assert_array_equal(got[:5], np.median(y[:, :5], axis=0))
+    assert np.signbit(got[2]) == (n_frames % 2 == 1) and got[2] == 0
+    assert np.isinf(got[4]) and np.isfinite(got[5]) and np.isnan(got[6])
+
+
+class _Made:
+    """A block factory that counts the passes made over it."""
+
+    def __init__(self, y, size):
+        self.make, self.passes = _cm_blocks(y, size), 0
+
+    def __call__(self):
+        self.passes += 1
+        return self.make()
+
+
+def _spy_select(ext):
+    """Record the (rows, t_len) of each call of ``ext``'s select."""
+    ops, calls = ext._ops, []
+
+    def select(mag_cm, t_len):
+        calls.append((tuple(mag_cm.shape), t_len))
+        return ops.noise_floor(mag_cm, t_len)
+
+    ext._ops = dataclasses.replace(ops, noise_floor=select)
+    return calls
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4])
+def test_kernel_floor_goes_in_channel_groups_past_the_budget(rows):
+    """Where the card holds fewer than all the channels' magnitudes and
+    K2's candidates (five bytes a sample), the kernel route selects over
+    groups of ``rows`` channels, one pass over the blocks and one select a
+    group, and the floor is the same."""
+    y = np.random.default_rng(7).random((300, M), dtype=np.float32)
+    ext = _extractor()
+    ext._nf_budget_bytes = lambda need: rows * 300 * 5 + 4
+    calls = _spy_select(ext)
+    made = _Made(y, 128)
+    got = ext._noise_floor_device(made, M, 300)
     np.testing.assert_array_equal(got, np.median(y, axis=0))
+    n_groups = -(-M // rows)
+    assert made.passes == n_groups
+    assert calls == [((min(rows, M - c0), 300), 300)
+                     for c0 in range(0, M, rows)]
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["kernel", "plain"])
+def test_floor_streams_the_descent_where_no_channel_fits(plain):
+    """Where not one channel's magnitudes fit the card, either route runs
+    the count descent over blocks made anew for each of its nine passes,
+    holding none; no select runs, and the floor is the exact median."""
+    y = _crafted_magnitudes(999)[:, :5]
+    ext = _extractor(plain=plain)
+    ext._nf_budget_bytes = lambda need: 999 * 4
+    calls = _spy_select(ext)
+    made = _Made(y, 256)
+    got = ext._noise_floor_device(made, 5, 999)
+    np.testing.assert_array_equal(got, np.median(y, axis=0))
+    assert made.passes == 9 and calls == []
+    assert ext.counters.get("nf_device_count_d2h_bytes") > 0
 
 
 def test_noise_floor_residency_cap_and_empty_streams():
-    ext = _extractor()
-    ext._NF_RESIDENT_CAP_BYTES = 64
-    one = lambda: iter([torch.ones((16, M))])  # noqa: E731
-    assert ext._noise_floor_device(one) is None
-    assert ext._noise_floor_device(one, est_bytes=65) is None
-    with pytest.raises(ValueError, match="empty sample stream"):
-        _extractor()._noise_floor_device(lambda: iter(()))
+    """Past the device's budget the floor is measured all the same, on
+    either route; an empty stream has none."""
+    y = np.random.default_rng(9).random((64, M), dtype=np.float32)
+    for plain in (False, True):
+        ext = _extractor(plain=plain)
+        ext._nf_budget_bytes = lambda need: 64
+        np.testing.assert_array_equal(
+            ext._noise_floor_device(_cm_blocks(y, 16), M, 64),
+            np.median(y, axis=0))
+        with pytest.raises(ValueError, match="empty sample stream"):
+            _extractor(plain=plain)._noise_floor_device(
+                lambda: iter(()), M, 0)
     with pytest.raises(ValueError, match="empty sample stream"):
         _extractor().measure_noise_floor(lambda: iter(()))
+    with pytest.raises(ValueError, match="12 frames, not 64"):
+        _extractor()._noise_floor_device(_cm_blocks(y[:12], 8), M, 64)
 
 
 def test_fused_noise_floor_equals_the_single_shot_floor(segment, port_fused):

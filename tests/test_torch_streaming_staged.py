@@ -1,10 +1,11 @@
-"""The streamed path's staged steps (``dsp/streaming.py``'s block steps and
-count passes, ``WidebandPdwPipeline.step``'s blocked tail): the JAX
+"""The streamed path's staged steps (``dsp/streaming.py``'s block steps,
+``WidebandPdwPipeline.step``'s blocked tail) and its floor: the JAX
 package's ``jax.jit`` sites on that path.  On the CPU a staged step is its
 eager form, so these tests hold what does not need a graph:
 
-* the count passes with the shift as a tensor against the JAX package's
-  jitted ones, level by level;
+* the plain route's count passes with the shift as a tensor against the
+  JAX package's jitted ones, level by level; the kernel route's floor as
+  one select over the blocks, no staged step;
 * the latch entry chained on the device: without a checkpoint no block's
   transfer comes to the host, with one the ``.npz`` files are the eager
   run's and the JAX package resumes from them;
@@ -22,6 +23,7 @@ Run alone: ``JAX_PLATFORMS=cpu python -m pytest
 tests/test_torch_streaming_staged.py -q -p no:cacheprovider``.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -55,8 +57,7 @@ FC = 5e8
 BLOCK, HALO = 512, 256
 CFG_KW = dict(max_pulses=64, max_pulse_samples=256)
 KEYS = ("toa", "freq", "pw", "mag", "snr", "sat", "channel")
-STEPS = ("fused_block", "floor_block", "nf_count_le", "nf_finish",
-         "detect_block")
+STEPS = ("fused_block", "floor_block", "detect_block")
 
 
 def _capture(n_frames, seed=5):
@@ -231,37 +232,33 @@ def test_finish_pass_matches_jax(count_levels):
                                       np.asarray(rm).view(np.uint32))
 
 
-def test_one_count_graph_serves_every_level():
-    """The shift is an argument, not a static one: eight levels of one
-    block shape are one key (a static shift would make eight)."""
-    staged = _extractor()._staged_nf_count_le
-    mag = torch.zeros(97, 5)
-    prefix = torch.zeros(5, dtype=torch.int64)
-    keys = {staged.key(mag, prefix, torch.tensor(28 - 4 * level))
-            for level in range(8)}
-    assert len(keys) == 1 and staged.static_argnames == frozenset()
-
-
 @pytest.mark.parametrize("ragged", [False, True], ids=["even", "ragged"])
-def test_device_floor_makes_a_key_a_block_shape(count_levels, ragged):
-    """``_noise_floor_device`` over 16 blocks: the exact median, and one
-    count and one finish key a block shape."""
+def test_device_floor_is_one_select_over_the_blocks(ragged):
+    """``_noise_floor_device`` over 16 channel-major blocks on the kernel
+    route: one call of the select over all of them, no staged step, the
+    exact median; the plain route's descent gives the same floor."""
     rng = np.random.default_rng(3)
     shapes = [64] * 15 + [20 if ragged else 64]
-    mags = [torch.from_numpy(rng.random((t, 5), np.float32))
-            for t in shapes]
+    mags = [torch.from_numpy(rng.random((5, t), np.float32)) for t in shapes]
     ext = _extractor()
     spies = _spy(ext)
-    nf = ext._noise_floor_device(lambda: iter(mags))
-    np.testing.assert_array_equal(
-        nf, np.median(torch.cat(mags).numpy(), axis=0).astype(np.float32))
-    n_keys = 2 if ragged else 1
-    assert len(spies["nf_count_le"].keys) == 8 * 16
-    assert len(set(spies["nf_count_le"].keys)) == n_keys
-    assert len(spies["nf_finish"].keys) == 16
-    assert len(set(spies["nf_finish"].keys)) == n_keys
-    assert ext.counters.get("nf_device_count_d2h_bytes") == \
-        8 * 5 * 15 * 8 + 5 * 8 + 5 * 4
+    ops = ext._ops
+    calls = []
+
+    def select(mag_cm, t_len):
+        calls.append((tuple(mag_cm.shape), t_len))
+        return ops.noise_floor(mag_cm, t_len)
+
+    ext._ops = dataclasses.replace(ops, noise_floor=select)
+    n_total = sum(shapes)
+    nf = ext._noise_floor_device(lambda: iter(mags), 5, n_total)
+    ref = np.median(torch.cat(mags, dim=1).numpy(), axis=1)
+    np.testing.assert_array_equal(nf, ref.astype(np.float32))
+    assert calls == [((5, n_total), n_total)]
+    assert all(not s.keys for s in spies.values())
+    plain = _extractor(plain=True)._noise_floor_device(
+        lambda: iter(mags), 5, n_total)
+    np.testing.assert_array_equal(nf, plain)
 
 
 # ------------------------------------------- the streamed run against JAX
@@ -565,7 +562,6 @@ def test_a_16_block_segment_keeps_its_keys_within_the_cap(tmp_path, ragged):
     assert calls["detect_block"] == 2 * 16
     assert keys == {"fused_block": 4 if ragged else 3,
                     "floor_block": 3 if ragged else 2,
-                    "nf_count_le": 0, "nf_finish": 0,
                     "detect_block": 3 if ragged else 2}
     assert max(keys.values()) <= MAX_GRAPHS
 
